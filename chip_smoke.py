@@ -1,0 +1,416 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and continued):
+  1. build the CUDA kernels from ``deepglobalregistration_tpu_torch/csrc``
+     (one nvcc per source, started together) and print the card's name and
+     power limit;
+  2. hold each kernel against its plain PyTorch version on the card, on
+     random inputs at the bench's row counts (full, ragged, no candidate,
+     exact duplicates);
+  3. drive ``DeepGlobalRegistration.register()`` at the bench configuration
+     (ResUNetBN2C FCGF conv1=7 / 32-dim, bf16 convs, 5 cm voxel, dense
+     extent 256^3, random-init 6D inlier net, committed FCGF weights) on a
+     warm-up pair and the four ``synthetic_pair(n=30000, seed=0..3)`` pairs,
+     with the launch counts set to 0 just before and read just after;
+     check pose accuracy against ground truth and that the kernels were
+     launched; hold the kernel against its plain version again on pair 0's
+     own feature-match and ICP inputs, and time there the kernel, the plain
+     version and one PyTorch library call computing the same function;
+     then the stage breakdown, the RANSAC branch, the bf16 forward against
+     the f32 one, and the card against the CPU's plain path on a small pair;
+  4. print one JSON line describing every kernel, the card's line, and as
+     the last line ``{"ok": true, "device": {...}}``.
+
+Imports nothing of JAX. Exits non-zero when no CUDA device is visible.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+WEIGHTS = ROOT / "weights" / "fcgf_synthetic.pkl"
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Relative tolerance of a squared distance, scaled by |a|^2 + |b|^2: the
+# kernel sums its cross term as an FMA chain in channel order, the plain
+# version in whatever order the f32 GEMM picks, so they may differ by a few
+# f32 ulps OF THE TERMS, which after the cancellation in |a|^2 - 2a.b +
+# |b|^2 can be large relative to a small d2 itself.
+D2_RTOL = 1e-5
+NEAR_TIE_SHARE = 1e-4
+
+
+def fail(msg: str):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def nn1_bound_ms(n0: int, n1: int, c: int):
+    ops = n0 * n1 * (2 * c + 3)  # dot product FMAs, d2 formula, compare
+    nbytes = (n0 + n1) * c * 4 + n0 * 8
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_nn1(knn, F0, F1, num0, num1, exact: bool, label: str) -> dict:
+    """Kernel vs plain on one input; returns the comparison's numbers."""
+    i_k, d_k = knn.find_nn_cuda(F0, F1, num0, num1)
+    torch.cuda.synchronize()
+    i_p, d_p = knn.find_nn_plain(F0, F1, num0, num1)
+    if not torch.equal(torch.isinf(d_k), torch.isinf(d_p)):
+        fail(f"nn1 {label}: rows without a candidate differ")
+    fin = torch.isfinite(d_p)
+    f0, f1 = F0.double(), F1.double()
+    scale = (f0 * f0).sum(1) + (f1[i_p.long()] * f1[i_p.long()]).sum(1)
+    err = (d_k.double() - d_p.double()).abs()
+    max_err = float(err[fin].max()) if bool(fin.any()) else 0.0
+    if bool((err[fin] > D2_RTOL * scale[fin].clamp_min(1e-30)).any()):
+        fail(f"nn1 {label}: d2 disagrees beyond {D2_RTOL} of |a|^2 + |b|^2")
+    diff = (i_k != i_p).nonzero()[:, 0]
+    if exact and diff.numel():
+        fail(f"nn1 {label}: {diff.numel()} index mismatches on exact ties")
+    if diff.numel():
+        q = f0[diff]
+        dk = ((q - f1[i_k[diff].long()]) ** 2).sum(1)
+        dp = ((q - f1[i_p[diff].long()]) ** 2).sum(1)
+        if bool(((dk - dp).abs() > D2_RTOL * scale[diff]).any()):
+            fail(f"nn1 {label}: an index mismatch is not a near-tie")
+        if diff.numel() > max(1, int(NEAR_TIE_SHARE * num0)):
+            fail(f"nn1 {label}: {diff.numel()} near-tie rows exceed "
+                 f"{NEAR_TIE_SHARE} of {num0}")
+    print(f"nn1 {label}: rows {F0.shape[0]}x{F1.shape[0]} C={F0.shape[1]} "
+          f"num0={num0} num1={num1} near-tie rows {diff.numel()} "
+          f"max |d2 err| {max_err:.3e}", flush=True)
+    return {"max_abs_err": max_err, "near_ties": int(diff.numel())}
+
+
+def phase_kernels(knn) -> float:
+    """Kernel vs plain on random inputs at the bench's row counts: full,
+    ragged, no candidate, and exact duplicates; returns the max |d2 err|."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    max_err = 0.0
+    for c in (32, 3):
+        F0 = torch.randn(14400, c, device="cuda", generator=g)
+        F1 = torch.randn(14400, c, device="cuda", generator=g)
+        for num0, num1 in ((14400, 14400), (14000, 13001), (14400, 0)):
+            r = check_nn1(knn, F0, F1, num0, num1, False, f"random C={c}")
+            max_err = max(max_err, r["max_abs_err"])
+        base = torch.randn(1000, c, device="cuda", generator=g)
+        F1d = base.repeat(8, 1).contiguous()  # every row duplicated 8x
+        F0d = F1d[torch.randperm(8000, device="cuda", generator=g)].contiguous()
+        r = check_nn1(knn, F0d, F1d, 8000, 8000, True, f"duplicates C={c}")
+        max_err = max(max_err, r["max_abs_err"])
+    return max_err
+
+
+def time_nn1(knn, F0, F1, label: str) -> dict:
+    """Kernel vs plain on one main-path input, then the kernel's, the plain
+    version's and one library call's time on it, beside its bound."""
+    n0, n1, c = F0.shape[0], F1.shape[0], F0.shape[1]
+    r = check_nn1(knn, F0, F1, n0, n1, False, label)
+    r["ms"] = cuda_ms(lambda: knn.find_nn_cuda(F0, F1, n0, n1))
+    r["plain_ms"] = cuda_ms(lambda: knn.find_nn_plain(F0, F1, n0, n1), 5)
+    r["library_ms"] = cuda_ms(lambda: torch.cdist(F0, F1).argmin(1), 5)
+    r["bound_ms"], r["bound_by"] = nn1_bound_ms(n0, n1, c)
+    r["shape"] = f"{n0}x{n1} C={c}"
+    print(f"nn1 {label} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, torch.cdist+argmin {r['library_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return r
+
+
+def pose_errors(T, T_gt):
+    cos = (np.trace(T[:3, :3].T @ T_gt[:3, :3]) - 1) / 2
+    return (float(np.rad2deg(np.arccos(np.clip(cos, -1.0, 1.0)))),
+            float(np.linalg.norm(T[:3, 3] - T_gt[:3, 3])))
+
+
+def _host_ms(fn, reps: int = 3):
+    """Mean host-clock ms of fn() between device synchronisations."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3, out
+
+
+def breakdown(dgr, pair, sec_per_pair: float) -> None:
+    """Plan builds against network compute, and the device's busy share of
+    one register() call (torch.profiler's CUDA kernel time over wall time)."""
+    from deepglobalregistration_tpu_torch.models.unet_plan import build_unet_plan
+    from deepglobalregistration_tpu_torch.ops import knn, sparse_grid
+
+    x0, x1 = dgr._as_tensor(pair[0]), dgr._as_tensor(pair[1])
+    g0 = sparse_grid.voxelize(x0, dgr.voxel_size, 0)[1]
+    g1 = sparse_grid.voxelize(x1, dgr.voxel_size, 1)[1]
+    f, i = dgr.fcgf_cfg, dgr.inlier_cfg
+    grid = torch.cat([g0, g1])
+    ms_plan3, plan3 = _host_ms(lambda: build_unet_plan(
+        grid, 2, f.conv1_kernel_size, f.region_type, f.levels,
+        dense_extent=dgr.dense_extent, ones_input=True))
+    ones = torch.ones((grid.shape[0], 1), dtype=dgr.compute_dtype, device=grid.device)
+    ms_net3, feats = _host_ms(lambda: dgr.fcgf(plan3, ones))
+    feats = feats.float()
+    n0 = g0.shape[0]
+    idx1 = knn.find_nn(feats[:n0], feats[n0:])[0].long()
+    c6 = torch.cat([torch.zeros_like(g0[:, :1]), g0[:, 1:], g1[idx1, 1:]], dim=1)
+    ms_plan6, plan6 = _host_ms(lambda: build_unet_plan(
+        c6, 1, i.conv1_kernel_size, i.region_type, i.levels))
+    ones6 = torch.ones((n0, 1), dtype=dgr.compute_dtype, device=grid.device)
+    ms_net6, _ = _host_ms(lambda: dgr.inlier(plan6, ones6))
+    edges3 = sum(em.n_edges for em in plan3.selfs + plan3.downs + plan3.ups)
+    edges6 = sum(em.n_edges for em in plan6.selfs + plan6.downs + plan6.ups)
+    print(json.dumps({
+        "rows_3d": [int(g.shape[0]) for g in plan3.grids],
+        "rows_6d": [int(g.shape[0]) for g in plan6.grids],
+        "edges_3d_k3_maps": edges3, "edges_6d_k3_maps": edges6,
+        "fcgf_plan_ms": ms_plan3, "fcgf_net_ms": ms_net3,
+        "inlier_plan_ms": ms_plan6, "inlier_net_ms": ms_net6}), flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dgr.register(pair[0], pair[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    # Kernel rows only (operator rows repeat their kernels' device time).
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if dev_ms <= 0:
+        print("device busy share: not measured (the profiler saw no device time)")
+        return
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    print(json.dumps({
+        "profiled_register_wall_ms": wall * 1e3,
+        "device_kernel_ms": dev_ms,
+        "device_busy_share_profiled": dev_ms / (wall * 1e3),
+        "device_busy_share_unprofiled": dev_ms / (sec_per_pair * 1e3),
+        "device_kernel_launches": sum(e.count for e in kernels),
+        "top_kernels_ms": {e.key[:70]: e.self_device_time_total / 1e3 for e in top},
+    }), flush=True)
+
+
+def safeguard(dgr, pair) -> None:
+    """The gate's other branch, which the bench pairs do not take: RANSAC on
+    pair 0's feature correspondences, on the card and on the CPU with the
+    same hypothesis draws, then ICP from the RANSAC pose."""
+    from deepglobalregistration_tpu_torch.ops import icp, knn, ransac, se3
+
+    x0, x1 = dgr._as_tensor(pair[0]), dgr._as_tensor(pair[1])
+    with torch.no_grad():
+        sel0, sel1, _, _, f0, f1, _ = dgr.features(x0, x1)
+        X, Y = sel0, sel1[knn.find_nn(f0, f1)[0].long()]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1)
+        samples = torch.randint(0, X.shape[0], (dgr.ransac_hypotheses, 4),
+                                generator=g, device="cuda")
+        thresh = 2 * dgr.voxel_size
+        ms, res = _host_ms(lambda: ransac.ransac_correspondence(
+            X, Y, thresh, samples=samples))
+        ref = ransac.ransac_correspondence(X.cpu(), Y.cpu(), thresh,
+                                           samples=samples.cpu())
+        T = icp.registration_icp(sel0, sel1, thresh,
+                                 init=se3.rt_to_matrix(res.R, res.t)).T
+    gap = max(float((res.R.cpu() - ref.R).abs().max()),
+              float((res.t.cpu() - ref.t).abs().max()))
+    rre, rte = pose_errors(T.double().cpu().numpy(), pair[2])
+    print(json.dumps({"ransac_ms": ms, "hypotheses": dgr.ransac_hypotheses,
+                      "correspondences": int(X.shape[0]),
+                      "fitness": float(res.fitness), "card_vs_cpu_max_abs": gap,
+                      "ransac_icp_rre_deg": rre, "ransac_icp_rte_cm": rte * 100}),
+          flush=True)
+    if gap > 1e-3:
+        fail(f"RANSAC on the card and on the CPU disagree by {gap:.3e}")
+    if rre > 1.0 or rte > 0.10:
+        fail(f"RANSAC + ICP pose off: rre {rre:.3f} deg, rte {rte * 100:.2f} cm")
+
+
+def phase_end_to_end(knn) -> dict:
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core.pipeline import (
+        STAGES, DeepGlobalRegistration)
+    from deepglobalregistration_tpu_torch.ops import se3
+    from deepglobalregistration_tpu_torch.utils.synthetic import synthetic_pair
+
+    if not WEIGHTS.exists():
+        fail(f"missing {WEIGHTS}")
+    bench = dict(feat_model="ResUNetBN2C", feat_model_n_out=32,
+                 feat_conv1_kernel_size=7, inlier_model="ResUNetBN2C",
+                 inlier_conv1_kernel_size=3, voxel_size=0.05,
+                 inlier_feature_type="ones", weights=str(WEIGHTS),
+                 dense_extent="256,256,256")
+    t0 = time.time()
+    dgr = DeepGlobalRegistration(default_config(bf16=True, **bench), device="cuda")
+    print(f"e2e: construction {time.time() - t0:.3f} s (inlier_trained="
+          f"{dgr.inlier_trained})", flush=True)
+    pairs = [synthetic_pair(n=30000, seed=s) for s in range(4)]
+    t0 = time.time()
+    dgr.register(pairs[0][0], pairs[0][1])  # warm-up
+    torch.cuda.synchronize()
+    print(f"e2e: warm-up pair {time.time() - t0:.3f} s", flush=True)
+
+    dgr.feat_timer.reset()
+    for t in dgr.stage_timers.values():
+        t.reset()
+    torch.cuda.reset_peak_memory_stats()
+    knn.find_nn_cuda.launches = 0
+    t0 = time.time()
+    Ts, branches, iters = [], [], []
+    for xyz0, xyz1, _ in pairs:
+        Ts.append(dgr.register(xyz0, xyz1))
+        branches.append(dgr.last_branch)
+        iters.append(dgr.last_iterations)
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / len(pairs)
+    launches = knn.find_nn_cuda.launches
+    errs = [pose_errors(T, p[2]) for T, p in zip(Ts, pairs)]
+    rre = float(np.mean([e[0] for e in errs]))
+    rte = float(np.mean([e[1] for e in errs]))
+    stages = {s: dgr.stage_timers[s].avg for s in STAGES}
+    print(json.dumps({
+        "sec_per_pair": dt, "pairs_per_sec": 1.0 / dt,
+        "feat_stage_sec": dgr.feat_timer.avg, "stage_sec": stages,
+        "rre_deg": rre, "rte_cm": rte * 100,
+        "rre_deg_per_pair": [e[0] for e in errs],
+        "rte_cm_per_pair": [e[1] * 100 for e in errs],
+        "branch_per_pair": branches, "iterations_per_pair": iters,
+        "overflow_pairs": dgr.overflow_count,
+        "nn1_launches": launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+    if not all(np.isfinite(T).all() and T.shape == (4, 4) for T in Ts):
+        fail("non-finite or misshapen transform")
+    if rre > 1.0 or rte > 0.10:
+        fail(f"accuracy: mean rre {rre:.3f} deg / rte {rte * 100:.2f} cm "
+             "(limits 1 deg / 10 cm)")
+    if launches < 2 * len(pairs):
+        fail(f"nn1 kernel launched {launches} times for {len(pairs)} pairs "
+             "(expected >= 2 per pair)")
+
+    # The kernel at the main path's own shapes and data: pair 0's feature
+    # match, and its last ICP scan (the source moved by the final pose).
+    x0, x1 = dgr._as_tensor(pairs[0][0]), dgr._as_tensor(pairs[0][1])
+    with torch.no_grad():
+        sel0, sel1, _, _, a0, a1, _ = dgr.features(x0, x1)
+    moved = se3.apply_transform(
+        sel0, torch.as_tensor(Ts[0], dtype=torch.float32, device="cuda"))
+    timings = [time_nn1(knn, a0, a1, "feature match (pair 0)"),
+               time_nn1(knn, moved.contiguous(), sel1, "ICP scan (pair 0)")]
+
+    breakdown(dgr, pairs[0], dt)
+    safeguard(dgr, pairs[0])
+    # The same branch through register(): every weight clipped to 0 fails the
+    # gate, so RANSAC draws from the instance's generator on the card.
+    dgr_r = DeepGlobalRegistration(
+        default_config(bf16=True, clip_weight_thresh=1.0, **bench), device="cuda")
+    rre_r, rte_r = pose_errors(dgr_r.register(pairs[0][0], pairs[0][1]), pairs[0][2])
+    print(f"register() on the RANSAC branch, pair 0: {dgr_r.last_branch}, rre "
+          f"{rre_r:.4f} deg, rte {rte_r * 100:.4f} cm", flush=True)
+    if dgr_r.last_branch != "ransac" or rre_r > 1.0 or rte_r > 0.10:
+        fail("register() on the RANSAC branch did not register pair 0")
+
+    # bf16 convs against f32 convs on pair 0 (same weights, same inputs).
+    dgr32 = DeepGlobalRegistration(default_config(bf16=False, **bench), device="cuda")
+    with torch.no_grad():
+        _, _, _, _, b0, b1, _ = dgr32.features(x0, x1)
+    cos = torch.nn.functional.cosine_similarity(torch.cat([a0, a1]),
+                                                torch.cat([b0, b1]), dim=1)
+    match = (knn.find_nn(a0, a1)[0] == knn.find_nn(b0, b1)[0]).float().mean()
+    print(f"bf16 vs f32 FCGF on pair 0: feature cosine mean {float(cos.mean()):.6f} "
+          f"min {float(cos.min()):.6f}; 1-NN index agreement {float(match):.6f}",
+          flush=True)
+
+    # The card against the CPU's plain path on a small pair.
+    small = dict(feat_model="ResUNetBN2F", feat_model_n_out=8,
+                 feat_conv1_kernel_size=3, inlier_model="ResUNetBN2FX",
+                 inlier_conv1_kernel_size=3, voxel_size=0.05,
+                 inlier_feature_type="ones", point_buckets="512,1024",
+                 ransac_hypotheses=512, level_shrink=1)
+    rng = np.random.RandomState(0)
+    xyz = (rng.rand(400, 3) * 1.2).astype(np.float32)
+    shift = np.array([8, -8, 16], np.float32) * 0.05
+    T_gpu = DeepGlobalRegistration(default_config(**small), "cuda").register(xyz, xyz + shift)
+    T_cpu = DeepGlobalRegistration(default_config(**small), "cpu").register(xyz, xyz + shift)
+    gap = float(np.abs(T_gpu - T_cpu).max())
+    print(f"small pair: card vs CPU plain path max |dT| {gap:.3e}", flush=True)
+    if gap > 1e-3:
+        fail("card and CPU disagree on the small pair beyond 1e-3")
+    return {"launches": launches, "timings": timings}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False", flush=True)
+        return 2
+    if not (ROOT / "deepglobalregistration_tpu_torch").is_dir():
+        print("FAIL: the port's package is not beside chip_smoke.py", flush=True)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from deepglobalregistration_tpu_torch.ops import knn
+    from deepglobalregistration_tpu_torch.utils import cuda_build, device
+
+    device.set_precision()
+    t0 = time.time()
+    cuda_build.build(verbose=True)  # prints ptxas registers / spills
+    card = card_line()
+    print(f"build: {time.time() - t0:.3f} s; card: {card}", flush=True)
+    synth_err = phase_kernels(knn)
+    e = phase_end_to_end(knn)
+    feat, scan = e["timings"]
+    entry = {"name": "nn1", "route": "cuda",
+             "source": "deepglobalregistration_tpu_torch/csrc/nn1.cu",
+             "replaces": "deepglobalregistration_tpu/ops/pallas_knn.py:33",
+             "launches": e["launches"],
+             "max_abs_err": max(synth_err, feat["max_abs_err"], scan["max_abs_err"]),
+             "ms": feat["ms"], "plain_ms": feat["plain_ms"],
+             "bound_ms": feat["bound_ms"], "bound_by": feat["bound_by"],
+             "library_ms": feat["library_ms"],
+             "shape": f"feature match {feat['shape']}; *_c3: ICP scan {scan['shape']}",
+             "ms_c3": scan["ms"], "plain_ms_c3": scan["plain_ms"],
+             "bound_ms_c3": scan["bound_ms"], "bound_by_c3": scan["bound_by"],
+             "library_ms_c3": scan["library_ms"]}
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

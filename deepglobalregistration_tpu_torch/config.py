@@ -28,12 +28,22 @@ class Config:
     level_shrink_6d: int = 1
     bf16: bool = False
     dense_extent: str = ""
+    icp_candidates: str = "auto"  # auto | on | off
+    knn_search_method: str = "gpu"  # gpu (the 1-NN kernel) | cpu (host KD-tree)
+
+
+# Keys of the JAX package's configuration that the port accepts and drops:
+# split_register picks per-stage programs over one fused program there; the
+# port runs eagerly and has one path.
+_IGNORED = ("split_register",)
 
 
 def default_config(**overrides) -> Config:
     """Defaults plus keyword overrides; an unknown key raises."""
     cfg = Config()
     for k, v in overrides.items():
+        if k in _IGNORED:
+            continue
         if not hasattr(cfg, k):
             raise ValueError(f"unknown config key {k}")
         setattr(cfg, k, v)

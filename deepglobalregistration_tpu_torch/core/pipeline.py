@@ -1,19 +1,26 @@
 """DeepGlobalRegistration — the end-to-end registration pipeline on the card.
 
-Counterpart of the JAX package's ``core/pipeline.py:71-202`` (construction)
-and of ``register()`` in its fused form (``:374-422``, ``register_fused``):
+Counterpart of the JAX package's ``core/pipeline.py:71-202`` (construction),
+of ``register()`` (``:821-979``) and of the staged API (``:607-728``):
 
   voxelize both clouds -> FCGF forward (one batch of B = 2 clouds) ->
-  feature 1-NN (CUDA kernel) -> 6D inlier net on the correspondences ->
+  feature 1-NN (CUDA kernel, or a host KD-tree with
+  ``knn_search_method="cpu"``) -> 6D inlier net on the correspondences ->
   sigmoid, clip at ``clip_weight_thresh`` -> weighted-sum gate
   ``wsum >= max(200, 0.05 * N0)`` -> Procrustes + Adam refinement, or the
-  safeguard RANSAC -> full-scan ICP (CUDA kernel every iteration).
+  safeguard RANSAC (on the correspondences, or with
+  ``safeguard_method="feature_matching"`` on fresh feature matches with the
+  distance checker) -> ICP polish: the full scan (CUDA kernel every
+  iteration) below the 32768 voxel bucket, candidate lists with a checked
+  full-scan fallback from it up (``icp_candidates`` auto | on | off).
 
 PyTorch runs eagerly, so the port needs none of the JAX package's static
-buckets, padding or speculative rebucketing: every stage runs at the true
-voxel counts, and its maps are exact. ``overflow_count`` still counts the
-pairs on which the JAX package's fixed capacities would have dropped
-kernel-map entries (``models/unet_plan.py``), so both report alike.
+buckets, padding, speculative rebucketing or split/fused programs
+(``default_config`` drops ``split_register``): every stage runs at the true
+voxel counts, and its maps are exact. The voxel bucket is still computed,
+because the ICP mode keys on it as in the JAX package. ``overflow_count``
+counts the pairs on which the JAX package's fixed capacities would have
+dropped kernel-map entries (``models/unet_plan.py``), so both report alike.
 """
 
 from __future__ import annotations
@@ -37,6 +44,9 @@ log = logging.getLogger(__name__)
 
 _DEFAULT_BUCKETS = (8192, 16384, 32768, 65536, 131072)
 STAGES = ("voxelize", "fcgf", "match", "inlier", "solve", "icp")
+# Voxel bucket from which icp_candidates="auto" takes candidate lists (the
+# JAX package's ``_ICP_CAND_MIN_CAP``).
+_ICP_CAND_MIN_CAP = 32768
 
 
 class Timer:
@@ -87,9 +97,18 @@ class DeepGlobalRegistration:
         self.device = device_utils.resolve_device(device)
         self.config = config
         self.clip_weight_thresh = config.clip_weight_thresh
+        self.safeguard_method = "correspondence"  # | "feature_matching"
+        self.use_icp = True
+        self.knn_search_method = str(config.knn_search_method)  # "cpu": host KD-tree
+        self.icp_candidates = str(config.icp_candidates)
+        if self.icp_candidates not in ("auto", "on", "off"):
+            raise ValueError("icp_candidates must be auto|on|off, got "
+                             f"{self.icp_candidates!r}")
         self.feat_timer = Timer()
         self.stage_timers: Dict[str, Timer] = {s: Timer() for s in STAGES}
         self.overflow_count = 0
+        self.cand_fallbacks = 0  # pairs whose candidate ICP fell back to the scan
+        self.last_iterations: Dict[str, object] = {}
         self.buckets = tuple(int(b) for b in str(config.point_buckets).split(",")
                              if b) or _DEFAULT_BUCKETS
         self.level_shrink = int(config.level_shrink)
@@ -153,7 +172,8 @@ class DeepGlobalRegistration:
     def _as_tensor(self, pcd) -> torch.Tensor:
         if hasattr(pcd, "points"):
             pcd = pcd.points
-        return torch.as_tensor(np.asarray(pcd, np.float32), device=self.device)
+        # A copy: the caller's array may be read-only.
+        return torch.as_tensor(np.array(pcd, np.float32), device=self.device)
 
     def _stage(self, name: str, start: bool):
         if self.device.type == "cuda":
@@ -161,11 +181,34 @@ class DeepGlobalRegistration:
         t = self.stage_timers[name]
         t.tic() if start else t.toc()
 
+    def _fcgf_forward(self, grid: torch.Tensor, batch_size: int, cap: int):
+        """FCGF on a batched voxel grid [N, 4]; returns (features [N, C] f32,
+        the JAX package's overflow count for the 3D plan)."""
+        cfg = self.fcgf_cfg
+        plan = build_unet_plan(
+            grid, batch_size, cfg.conv1_kernel_size, cfg.region_type, cfg.levels,
+            capacity=cap, level_shrink=self.level_shrink,
+            dense_extent=self.dense_extent, ones_input=cfg.in_channels == 1)
+        ones = torch.ones((grid.shape[0], 1), dtype=self.compute_dtype,
+                          device=self.device)
+        return self.fcgf(plan, ones).float(), plan.overflow
+
+    def _inlier_logits(self, c6: torch.Tensor, ifeat: torch.Tensor, cap: int):
+        """6D inlier net on a grid [M, 7]; returns (logits [M, 1] f32, the JAX
+        package's overflow count for the 6D plan)."""
+        cfg = self.inlier_cfg
+        plan = build_unet_plan(c6, 1, cfg.conv1_kernel_size, cfg.region_type,
+                               cfg.levels, capacity=cap,
+                               level_shrink=self.level_shrink_6d,
+                               dense_extent=self.dense_extent)
+        return self.inlier(plan, ifeat.to(self.compute_dtype)).float(), plan.overflow
+
     def features(self, xyz0: torch.Tensor, xyz1: torch.Tensor):
         """Voxelize both clouds and run FCGF on them as one batch.
 
         Returns (selected points 0, 1, voxel grids 0, 1, features 0, 1, the
-        JAX package's overflow count for the 3D plan)."""
+        JAX package's overflow count for the 3D plan). Sets ``_cap``, the
+        voxel bucket of the pair."""
         self._stage("voxelize", True)
         sel0, g0 = sparse_grid.voxelize(xyz0, self.voxel_size, 0)
         sel1, g1 = sparse_grid.voxelize(xyz1, self.voxel_size, 1)
@@ -174,17 +217,10 @@ class DeepGlobalRegistration:
         self._cap = _bucket_for(max(n0, g1.shape[0]), self.buckets)
         self._stage("fcgf", True)
         self.feat_timer.tic()
-        plan = build_unet_plan(
-            torch.cat([g0, g1]), 2, self.fcgf_cfg.conv1_kernel_size,
-            self.fcgf_cfg.region_type, self.fcgf_cfg.levels, capacity=self._cap,
-            level_shrink=self.level_shrink, dense_extent=self.dense_extent,
-            ones_input=self.fcgf_cfg.in_channels == 1)
-        ones = torch.ones((plan.grids[0].shape[0], 1), dtype=self.compute_dtype,
-                          device=self.device)
-        feats = self.fcgf(plan, ones).float()
+        feats, overflow = self._fcgf_forward(torch.cat([g0, g1]), 2, self._cap)
         self._stage("fcgf", False)
         self.feat_timer.toc()
-        return sel0, sel1, g0, g1, feats[:n0], feats[n0:], plan.overflow
+        return sel0, sel1, g0, g1, feats[:n0], feats[n0:], overflow
 
     def inlier_weights(self, sel0, sel1, g0, g1, f0, f1, idx1):
         """6D inlier net on the correspondences (row i <-> idx1[i]); returns
@@ -199,24 +235,55 @@ class DeepGlobalRegistration:
             ifeat = torch.cat([torch.cos(sel0), torch.cos(sel1[idx1])], dim=1)
         else:
             raise TypeError(f"undefined inlier feature type {self.inlier_feature_type}")
-        cfg = self.inlier_cfg
-        plan = build_unet_plan(c6, 1, cfg.conv1_kernel_size, cfg.region_type,
-                               cfg.levels, capacity=self._cap,
-                               level_shrink=self.level_shrink_6d,
-                               dense_extent=self.dense_extent)
-        logits = self.inlier(plan, ifeat.to(self.compute_dtype))
-        w = torch.sigmoid(logits[:, 0].float())
+        logits, overflow = self._inlier_logits(c6, ifeat, self._cap)
+        w = torch.sigmoid(logits[:, 0])
         if self.clip_weight_thresh > 0:
             w = torch.where(w < self.clip_weight_thresh, torch.zeros_like(w), w)
-        return w, plan.overflow
+        return w, overflow
+
+    def use_cand_for(self, cap: int) -> bool:
+        """Whether ICP takes candidate lists at voxel bucket ``cap``."""
+        if self.icp_candidates == "auto":
+            return cap >= _ICP_CAND_MIN_CAP
+        return self.icp_candidates == "on"
+
+    def icp_polish(self, sel0: torch.Tensor, sel1: torch.Tensor,
+                   T: torch.Tensor) -> torch.Tensor:
+        """ICP from T at ``max_correspondence_distance = 2 * voxel``: the full
+        scan, or at the pair's bucket (``_cap``) candidate lists with the
+        checked full-scan fallback. Records ``last_iterations["icp"]`` and
+        ``["icp_mode"]``; a fallback adds one to ``cand_fallbacks``."""
+        self._stage("icp", True)
+        mcd = 2 * self.voxel_size
+        if self.use_cand_for(self._cap):
+            res = icp_ops.registration_icp_checked(sel0, sel1, mcd, init=T)
+            mode = "candidates"
+            if not res.cand_ok:
+                self.cand_fallbacks += 1
+                log.warning("ICP candidate lists went stale (pose drift > "
+                            "quarter cell); the full-scan ICP fallback ran")
+        else:
+            res = icp_ops.registration_icp(sel0, sel1, mcd, init=T)
+            mode = "full"
+        self.last_iterations.update(icp=res.iterations, icp_mode=mode)
+        self._stage("icp", False)
+        return res.T
 
     @torch.no_grad()
-    def register(self, xyz0, xyz1) -> np.ndarray:
-        """Register xyz0 onto xyz1; returns the 4x4 float64 transform."""
+    def register(self, xyz0, xyz1, inlier_thr: float = 0.0) -> np.ndarray:
+        """Register xyz0 onto xyz1; returns the 4x4 float64 transform.
+
+        ``inlier_thr`` is the JAX package's (and the reference's) argument;
+        it is unused there too."""
         xyz0, xyz1 = self._as_tensor(xyz0), self._as_tensor(xyz1)
         sel0, sel1, g0, g1, f0, f1, ov3 = self.features(xyz0, xyz1)
         self._stage("match", True)
-        idx1 = knn.find_nn(f0, f1)[0].long()
+        if self.knn_search_method == "cpu":
+            idx = knn.find_knn_cpu(f0.cpu().numpy(), f1.cpu().numpy())
+            idx1 = torch.as_tensor(np.asarray(idx).reshape(-1), dtype=torch.long,
+                                   device=self.device)
+        else:
+            idx1 = knn.find_nn(f0, f1)[0].long()
         self._stage("match", False)
         self._stage("inlier", True)
         w, ov6 = self.inlier_weights(sel0, sel1, g0, g1, f0, f1, idx1)
@@ -232,25 +299,107 @@ class DeepGlobalRegistration:
                  ">=" if wsum >= thresh else "<", thresh)
         self.last_branch = "refine" if wsum >= thresh else "ransac"
         self._stage("solve", True)
-        x1c = sel1[idx1]
+        voxel2 = 2 * self.voxel_size
         if wsum >= thresh:
             res = registration.global_registration(
-                sel0, x1c, w, break_threshold_ratio=1e-4,
-                quantization_size=2 * self.voxel_size)
-        else:
+                sel0, sel1[idx1], w, break_threshold_ratio=1e-4,
+                quantization_size=voxel2)
+        elif self.safeguard_method == "correspondence":
             res = ransac.ransac_correspondence(
-                sel0, x1c, distance_threshold=2 * self.voxel_size,
+                sel0, sel1[idx1], distance_threshold=voxel2,
+                num_hypotheses=self.ransac_hypotheses, generator=self._rng)
+        else:
+            res = ransac.ransac_feature_matching(
+                sel0, sel1, f0, f1, distance_threshold=voxel2,
                 num_hypotheses=self.ransac_hypotheses, generator=self._rng)
         T = se3.rt_to_matrix(res.R, res.t)
         self.last_iterations = {"refine": getattr(res, "iterations", 0)}
         self._stage("solve", False)
-        self._stage("icp", True)
-        res = icp_ops.registration_icp(sel0, sel1, 2 * self.voxel_size, init=T)
-        self.last_iterations["icp"] = res.iterations
-        self._stage("icp", False)
-        T = res.T
+        if self.use_icp:
+            T = self.icp_polish(sel0, sel1, T)
         return T.double().cpu().numpy()
 
     def register_many(self, xyz0_list, xyz1_list) -> np.ndarray:
         """Sequential ``register`` over pairs; returns [B, 4, 4]."""
         return np.stack([self.register(a, b) for a, b in zip(xyz0_list, xyz1_list)])
+
+    # ------------------------------------------------------------------
+    # Staged API (the reference's deep_global_registration.py:134-236):
+    # numpy in, numpy out, each stage on the instance's device.
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def preprocess(self, pcd):
+        """Voxelize a raw cloud. Returns (xyz [M, 3] f32, one point per voxel;
+        coords [M, 3] int32 voxel coordinates; feats [M, 1] ones)."""
+        sel, grid = sparse_grid.voxelize(self._as_tensor(pcd), self.voxel_size, 0)
+        m = grid.shape[0]
+        return (sel.cpu().numpy(), grid[:, 1:].to(torch.int32).cpu().numpy(),
+                np.ones((m, 1), np.float32))
+
+    @torch.no_grad()
+    def fcgf_feature_extraction(self, feats, coords) -> np.ndarray:
+        """FCGF features [M, C] f32 for voxel coords [M, 3]. ``feats`` is
+        accepted for the reference's signature (the net consumes ones)."""
+        c = torch.as_tensor(np.asarray(coords), dtype=torch.int64, device=self.device)
+        grid = torch.cat([torch.zeros_like(c[:, :1]), c], dim=1)
+        out, _ = self._fcgf_forward(grid, 1, _bucket_for(len(c), self.buckets))
+        return out.cpu().numpy()
+
+    @torch.no_grad()
+    def fcgf_feature_matching(self, feats0, feats1):
+        """1-NN feature correspondences. Returns (corres_idx0 = arange int64,
+        corres_idx1 int32) as numpy."""
+        f0, f1 = self._as_tensor(feats0), self._as_tensor(feats1)
+        idx1 = knn.find_nn(f0, f1)[0]
+        return np.arange(len(f0), dtype=np.int64), idx1.cpu().numpy()
+
+    def inlier_feature_generation(self, xyz0, xyz1, coords0, coords1,
+                                  fcgf_feats0, fcgf_feats1,
+                                  corres_idx0, corres_idx1) -> np.ndarray:
+        """The 6D net's input features for the correspondences (numpy)."""
+        i0 = np.asarray(corres_idx0)
+        i1 = np.asarray(corres_idx1)
+        if self.inlier_feature_type == "ones":
+            return np.ones((len(i0), 1), np.float32)
+        if self.inlier_feature_type == "feats":
+            return np.concatenate([np.asarray(fcgf_feats0)[i0],
+                                   np.asarray(fcgf_feats1)[i1]], axis=1)
+        if self.inlier_feature_type == "coords":
+            return np.concatenate([np.cos(np.asarray(xyz0)[i0]),
+                                   np.cos(np.asarray(xyz1)[i1])],
+                                  axis=1).astype(np.float32)
+        raise TypeError(f"undefined inlier feature type {self.inlier_feature_type}")
+
+    @torch.no_grad()
+    def inlier_prediction(self, inlier_feats, coords) -> np.ndarray:
+        """Inlier logits [M, 1] f32 for 6D coords [M, 6]."""
+        c = torch.as_tensor(np.asarray(coords), dtype=torch.int64, device=self.device)
+        c6 = torch.cat([torch.zeros_like(c[:, :1]), c], dim=1)
+        logits, _ = self._inlier_logits(c6, self._as_tensor(inlier_feats),
+                                        _bucket_for(len(c), self.buckets))
+        return logits.cpu().numpy()
+
+    @torch.no_grad()
+    def safeguard_registration(self, pcd0, pcd1, idx0, idx1, feats0, feats1,
+                               distance_threshold, num_iterations) -> np.ndarray:
+        """Safeguard RANSAC; returns a 4x4 float64 transform.
+
+        ``num_iterations`` is the hypothesis budget, clamped to [1024, 65536];
+        ``safeguard_method`` picks RANSAC on the given correspondences or on
+        fresh feature matches with the distance checker."""
+        xyz0, xyz1 = self._as_tensor(pcd0), self._as_tensor(pcd1)
+        h = int(min(max(num_iterations, 1024), 65536))
+        thresh = float(distance_threshold)
+        if self.safeguard_method == "correspondence":
+            i0 = torch.as_tensor(np.asarray(idx0), dtype=torch.long, device=self.device)
+            i1 = torch.as_tensor(np.asarray(idx1), dtype=torch.long, device=self.device)
+            res = ransac.ransac_correspondence(xyz0[i0], xyz1[i1], thresh,
+                                               num_hypotheses=h, generator=self._rng)
+        else:
+            res = ransac.ransac_feature_matching(
+                xyz0, xyz1, self._as_tensor(feats0), self._as_tensor(feats1),
+                thresh, num_hypotheses=h, generator=self._rng)
+        T = np.eye(4)
+        T[:3, :3] = res.R.cpu().numpy()
+        T[:3, 3] = res.t.cpu().numpy()
+        return T

@@ -1,23 +1,40 @@
-"""Point-to-point ICP with Open3D's convergence rule, full-scan neighbours.
+"""Point-to-point ICP with Open3D's convergence rule: full scan or candidate lists.
 
-Counterpart of the JAX package's ``ops/icp.py:113-234`` in its full-scan
-mode (the path its pipeline takes below the 32768-row bucket): each
-iteration finds every moved source point's nearest target (``knn.find_nn``:
-the CUDA kernel on the card), gates pairs by the maximum correspondence
-distance, solves the update by weighted Procrustes on the moved points and
-composes ``rt_to_matrix(R, t) @ T``. The correspondences found when
-evaluating the new pose feed the next update, so there is one neighbour
-search per iteration. Stops when both |d fitness| and |d rmse| fall below
-1e-6, or after 30 iterations.
+Counterpart of the JAX package's ``ops/icp.py``. Each iteration finds every
+moved source point's nearest target, gates pairs by the maximum
+correspondence distance, solves the update by weighted Procrustes on the
+moved points and composes ``rt_to_matrix(R, t) @ T``. The correspondences
+found when evaluating the new pose feed the next update, so there is one
+neighbour search per iteration. Stops when both |d fitness| and |d rmse| fall
+below 1e-6, or after 30 iterations.
+
+Two neighbour searches:
+
+- the full scan (``use_candidates=False``): ``knn.find_nn`` over every
+  target, the CUDA kernel on the card; exact for any init. Each pair's d2 is
+  the kernel's |a|^2 - 2a.b + |b|^2, as in the JAX package's scan. (At LiDAR
+  ranges of tens of metres its f32 rounding moves the rmse by more than the
+  1e-6 stop rule, so the scan may run on where the candidate path, whose d2
+  is a sum of squared differences, stops; the JAX package's scan does too.)
+- candidate lists (``use_candidates=True``, the JAX package's path at voxel
+  buckets >= 32768): targets bucketed once into cells of the correspondence
+  distance, each source point (at the init pose) keeps the targets of its 27
+  neighbouring cells, at most 8 a cell, and every iteration reduces over that
+  fixed [N0, 216, 3] array. The lists hold while the pose stays within a
+  quarter cell of the init: past it the loop stops at once and ``cand_ok``
+  is False, and ``registration_icp_checked`` reruns the full scan from the
+  same init.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import knn, procrustes, se3
+
+_SENTINEL_XYZ = 1e6  # absent candidate slots: d2 ~ 1e12, never the argmin
 
 
 class ICPResult(NamedTuple):
@@ -25,32 +42,104 @@ class ICPResult(NamedTuple):
     fitness: float
     inlier_rmse: float
     iterations: int
+    cand_ok: bool = True  # candidate lists stayed valid (always True for the scan)
+
+
+def _cell_key(c: torch.Tensor) -> torch.Tensor:
+    """Pack int32 cell coordinates [..., 3] into 10-bit fields (clipped)."""
+    c = torch.clamp(c, 0, 1021)
+    return (c[..., 0] << 20) | (c[..., 1] << 10) | c[..., 2]
+
+
+def _build_candidates(moved0: torch.Tensor, target: torch.Tensor, cell: float,
+                      cap_per_cell: int = 8
+                      ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """For each source point (at its initial pose), the targets in the 27
+    cells around it.
+
+    moved0 [N0, 3], target [N1 >= 1, 3] (valid rows only, so no sentinel
+    key is needed for padding rows as in the JAX package). Returns (cand_idx
+    [N0, 27 * cap] int32, cand_xyz [N0, 27 * cap, 3] f32, overflow). Absent
+    slots carry index -1 and coordinates 1e6. Within a cell, candidates keep
+    ascending target index; cells follow the (-1, 0, 1)^3 offsets in
+    ``meshgrid(indexing="ij")`` order, as in the JAX package, so the argmin's
+    first-minimum rule picks the same target. ``overflow`` is True when a
+    cell holds more than ``cap_per_cell`` targets (impossible for voxel-
+    unique targets with cell = 2 * voxel)."""
+    dev = target.device
+    n0, n1 = moved0.shape[0], target.shape[0]
+    tc = torch.floor(target / cell).to(torch.int32)
+    base = tc.min(dim=0).values - 2
+    key_t = _cell_key(tc - base)
+    # Stable: equal keys keep ascending target index, as jax.lax.sort does.
+    skey, sperm = torch.sort(key_t, stable=True)
+    sperm = sperm.to(torch.int32)
+
+    sc = torch.floor(moved0 / cell).to(torch.int32) - base
+    r = torch.arange(-1, 2, dtype=torch.int32, device=dev)
+    d = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(27, 3)
+    nk = _cell_key(sc[:, None, :] + d[None, :, :])  # [N0, 27]
+    starts = torch.searchsorted(skey, nk, right=False).to(torch.int32)
+    counts = torch.searchsorted(skey, nk, right=True).to(torch.int32) - starts
+    overflow = bool(torch.any((counts > cap_per_cell) & (nk < 2 ** 30)))
+
+    j = torch.arange(cap_per_cell, dtype=torch.int32, device=dev)
+    slot = starts[..., None] + j  # [N0, 27, cap]
+    valid = j < torch.clamp(counts, max=cap_per_cell)[..., None]
+    picked = sperm[torch.clamp(slot, max=n1 - 1).long()]
+    cand_idx = torch.where(valid, picked, torch.full_like(picked, -1))
+    cand_idx = cand_idx.reshape(n0, -1)
+    cand_xyz = target[torch.clamp(cand_idx, min=0).long()]
+    cand_xyz = torch.where((cand_idx >= 0)[..., None], cand_xyz,
+                           torch.full_like(cand_xyz, _SENTINEL_XYZ))
+    return cand_idx, cand_xyz, overflow
 
 
 def registration_icp(source: torch.Tensor, target: torch.Tensor,
                      max_correspondence_distance: float,
                      init: torch.Tensor | None = None, max_iteration: int = 30,
                      relative_fitness: float = 1e-6,
-                     relative_rmse: float = 1e-6) -> ICPResult:
-    """source [N0, 3], target [N1, 3] (valid rows only), init [4, 4] f32."""
+                     relative_rmse: float = 1e-6,
+                     use_candidates: bool = False) -> ICPResult:
+    """source [N0, 3], target [N1, 3] (valid rows only), init [4, 4] f32.
+
+    ``use_candidates``: candidate-list search (see the module docstring),
+    exact only from a near-converged init; check ``cand_ok``."""
     source = source.float().contiguous()
     target = target.float().contiguous()
     n0 = source.shape[0]
     T = torch.eye(4, device=source.device) if init is None else init.float()
     thresh2 = max_correspondence_distance ** 2
 
+    if use_candidates:
+        moved0 = se3.apply_transform(source, T)
+        cand_idx, cand_xyz, cand_overflow = _build_candidates(
+            moved0, target, cell=max_correspondence_distance)
+
+        def find(moved):
+            d2 = torch.sum((moved[:, None, :] - cand_xyz) ** 2, dim=-1)
+            jbest = torch.argmin(d2, dim=1, keepdim=True)  # first minimum
+            return (torch.gather(d2, 1, jbest)[:, 0],
+                    cand_xyz[torch.arange(n0, device=source.device), jbest[:, 0]])
+    else:
+        def find(moved):
+            idx, d2 = knn.find_nn(moved, target)
+            return d2, target[idx.long()]
+
     def evaluate(T):
         moved = se3.apply_transform(source, T)
-        idx, d2 = knn.find_nn(moved, target)
+        d2, nn_xyz = find(moved)
         inl = d2 < thresh2
         cnt = torch.sum(inl.float())
         fitness = cnt / max(n0, 1)
         rmse = torch.sqrt(torch.sum(torch.where(inl, d2, torch.zeros_like(d2)))
                           / torch.clamp(cnt, min=1.0))
-        return moved, inl, target[idx.long()], fitness, rmse
+        return moved, inl, nn_xyz, fitness, rmse
 
+    drift_bound2 = (0.25 * max_correspondence_distance) ** 2
     moved, inl, nn_xyz, fit, rmse = evaluate(T)
     i = 0
+    stale = False
     while i < max_iteration:
         R, t = procrustes.weighted_procrustes(moved, nn_xyz, inl.float())
         T = torch.matmul(se3.rt_to_matrix(R, t), T)
@@ -59,6 +148,33 @@ def registration_icp(source: torch.Tensor, target: torch.Tensor,
         done = bool((torch.abs(fit_new - fit) < relative_fitness)
                     & (torch.abs(rmse_new - rmse) < relative_rmse))
         fit, rmse = fit_new, rmse_new
-        if done:
+        if use_candidates:
+            # Lists built at the init: past the quarter-cell bound their
+            # answers are no longer trusted, so stop at once (the checked
+            # wrapper's full scan redoes the work).
+            drift2 = torch.max(torch.sum((moved - moved0) ** 2, dim=1))
+            stale = bool(drift2 > drift_bound2)
+        if done or stale:
             break
-    return ICPResult(T=T, fitness=float(fit), inlier_rmse=float(rmse), iterations=i)
+    cand_ok = not (cand_overflow or stale) if use_candidates else True
+    return ICPResult(T=T, fitness=float(fit), inlier_rmse=float(rmse),
+                     iterations=i, cand_ok=cand_ok)
+
+
+def registration_icp_checked(source: torch.Tensor, target: torch.Tensor,
+                             max_correspondence_distance: float,
+                             init: torch.Tensor | None = None,
+                             max_iteration: int = 30) -> ICPResult:
+    """Candidate-list ICP; when its lists do not hold (``cand_ok`` False:
+    the pose drifted past the quarter-cell bound, or a cell overflowed), the
+    full scan reruns from the same init on the same device. The result's
+    ``cand_ok`` says whether the candidate answer was kept (False: the full
+    scan's answer is returned)."""
+    res = registration_icp(source, target, max_correspondence_distance,
+                           init=init, max_iteration=max_iteration,
+                           use_candidates=True)
+    if res.cand_ok:
+        return res
+    full = registration_icp(source, target, max_correspondence_distance,
+                            init=init, max_iteration=max_iteration)
+    return full._replace(cand_ok=False)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 _TILE = 4096
@@ -125,3 +126,15 @@ def find_nn(F0: torch.Tensor, F1: torch.Tensor, num0: int | None = None,
         return find_nn_cuda(F0.float().contiguous(), F1.float().contiguous(),
                             num0, num1)
     return find_nn_plain(F0, F1, num0, num1)
+
+
+def find_knn_cpu(feat0, feat1, knn: int = 1, return_distance: bool = False):
+    """Host KD-tree k-NN (scipy ``cKDTree``; the ``knn_search_method="cpu"``
+    route, a copy of the JAX package's ``ops/knn.py:find_knn_cpu``). numpy in,
+    numpy out: indices [N0] for knn = 1, else [N0, knn]."""
+    from scipy.spatial import cKDTree
+
+    dists, nn_inds = cKDTree(np.asarray(feat1)).query(np.asarray(feat0), k=knn)
+    if return_distance:
+        return nn_inds, dists
+    return nn_inds

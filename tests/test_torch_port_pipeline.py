@@ -121,6 +121,10 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "deepglobalregistration_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    walked = {f.relative_to(ROOT).as_posix() for f in files}
+    for path in ("ops/gather.py", "ops/icp.py", "ops/ransac.py", "ops/knn.py",
+                 "tools/gather_bench.py", "utils/synthetic.py", "core/pipeline.py"):
+        assert f"deepglobalregistration_tpu_torch/{path}" in walked
     banned = ("jax", "jaxlib", "optax", "deepglobalregistration_tpu")
     for f in files:
         for mod in _imports(f):

@@ -6,9 +6,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   1. build the CUDA kernels from ``deepglobalregistration_tpu_torch/csrc``
      (one nvcc per source, started together) and print the card's name and
      power limit;
-  2. hold the 1-NN kernel against its plain PyTorch version on the card, on
-     random inputs at the bench's row counts (full, ragged, no candidate,
-     exact duplicates);
+  2. hold the two 1-NN kernels against the plain PyTorch version on the
+     card, on random inputs at the bench's row counts (full, ragged, no
+     candidate, exact duplicates): ``nn1_scan`` (C <= 8) at C = 3 and 8 to
+     2 f32 ulps of the plain d2, ``nn1_mma`` (3xTF32, 8 < C <= 64) at C = 9,
+     32 and 64 to 2^-20 of |a|^2 + |b|^2 against the exact f64 d2; index
+     mismatches only on near-ties, none on exact duplicates;
   3. the gather probe (``tools/gather_bench.py``, the counterpart of the JAX
      package's ``tools/pallas_gather_bench.py``) with its launch counts set
      to 0 just before and read just after; then both gather kernels against
@@ -20,9 +23,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      warm-up pair and the four ``synthetic_pair(n=30000, seed=0..3)`` pairs,
      with the launch counts set to 0 just before and read just after;
      check pose accuracy against ground truth and that the kernels were
-     launched; hold the kernel against its plain version again on pair 0's
-     own feature-match and ICP inputs, and time there the kernel, the plain
-     version and one PyTorch library call computing the same function;
+     launched (``nn1_mma`` once a pair, ``nn1_scan`` once an ICP step);
+     hold each kernel against the plain version again on pair 0's own
+     feature-match (``nn1_mma``) and ICP (``nn1_scan``, bit for bit)
+     inputs, and time there the kernel, the plain version and one PyTorch
+     library call computing the same function;
      then the stage breakdown, the RANSAC branch, the bf16 forward against
      the f32 one, and the card against the CPU's plain path on a small pair;
   5. the bench pairs again with ``icp_candidates="on"`` (candidate-list ICP
@@ -34,7 +39,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   7. ``register()`` at the KITTI-scale configuration (``lidar_like_pair``,
      120k points, 0.3 m voxel, conv1=5, dense extent 384x384x48, bf16,
      seeded random weights): a warm-up pair and pairs 0..2, each of which
-     must take candidate-list ICP; the 1-NN kernel at that scale's shapes;
+     must take candidate-list ICP; the icp stage again with
+     ``icp_candidates="off"`` and once more with "auto"; the 1-NN kernels at
+     that scale's shapes;
      candidate against full-scan ICP on pair 0 from a near-converged init
      (their poses must agree) and from a coarse init (the checked ICP must
      fall back to the full scan's exact answer);
@@ -62,12 +69,19 @@ ROOT = Path(__file__).resolve().parent
 WEIGHTS = ROOT / "weights" / "fcgf_synthetic.pkl"
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense tensor cores
 PEAK_BYTES = 3.35e12
-# Tolerance of a squared distance: 2 f32 ulps of |a|^2 + |b|^2. Both sides
-# sum the norms in channel order; the kernel sums its cross term as an FMA
-# chain, the plain version in the order the f32 GEMM picks, which may move
-# it by an ulp or so of the terms (the card has shown no difference at all
-# on any input here).
+# Kernel A (nn1_scan) against the plain version: 2 f32 ulps of |a|^2 +
+# |b|^2. Both sides sum the norms in channel order; the kernel sums its
+# cross term as an FMA chain, the plain version in the order the f32 GEMM
+# picks, which may move it by an ulp or so of the terms. On the ICP-scan
+# inputs of the main path it must agree bit for bit. Kernel B (nn1_mma,
+# 3xTF32) is held to knn.MMA_D2_RTOL (2^-20) of |a|^2 + |b|^2 against the
+# exact f64 d2 of the row it picks. Index mismatches must be near-ties
+# (exact d2 within the tolerance), on at most NEAR_TIE_SHARE of the rows;
+# where an input holds more (the KITTI random-weight features: the plain
+# version itself misses the exact f64 argmin on ~7e-4 of the rows), kernel B
+# must miss the exact argmin on no more rows than the plain version does.
 D2_RTOL = 2.0 ** -22
 NEAR_TIE_SHARE = 1e-4
 # Pose limits of bench.py:86-91.
@@ -107,79 +121,151 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def nn1_bound_ms(n0: int, n1: int, c: int):
-    ops = n0 * n1 * (2 * c + 3)  # dot product FMAs, d2 formula, compare
-    nbytes = (n0 + n1) * c * 4 + n0 * 8
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def nn1_bound_ms(n0: int, n1: int, c: int, tensor_cores: bool = False):
+    """(ms, by): the larger of the operations' and the bytes' time. The f32
+    bound counts N0 N1 (2C + 3) operations (dot product FMAs, d2 formula,
+    compare) at 67 TFLOP/s; the tensor-core bound 3 x 2 N0 N1 C (three TF32
+    products) at 495 TFLOP/s."""
+    ops = 3 * 2 * n0 * n1 * c if tensor_cores else n0 * n1 * (2 * c + 3)
+    t_ops = ops / (PEAK_TF32_FLOPS if tensor_cores else PEAK_F32_FLOPS)
+    t_bytes = ((n0 + n1) * c * 4 + n0 * 8) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_nn1(knn, F0, F1, num0, num1, exact: bool, label: str) -> dict:
-    """Kernel vs plain on one input; returns the comparison's numbers."""
-    i_k, d_k = knn.find_nn_cuda(F0, F1, num0, num1)
+def check_nn1(knn, F0, F1, num0, num1, exact: bool, label: str,
+              bitwise: bool = False) -> dict:
+    """The width's kernel against the plain version on one input; returns
+    the comparison's numbers. ``exact``: indices equal on every row (exact
+    duplicates); ``bitwise``: indices and d2 equal bit for bit (kernel A on
+    the main path's ICP scans)."""
+    mma = F0.shape[1] > knn.SCAN_MAX_C
+    kernel = knn.nn1_mma if mma else knn.nn1_scan
+    i_k, d_k = kernel(F0, F1, num0, num1)
     torch.cuda.synchronize()
     i_p, d_p = knn.find_nn_plain(F0, F1, num0, num1)
     if not torch.equal(torch.isinf(d_k), torch.isinf(d_p)):
         fail(f"nn1 {label}: rows without a candidate differ")
     fin = torch.isfinite(d_p)
     f0, f1 = F0.double(), F1.double()
-    scale = (f0 * f0).sum(1) + (f1[i_p.long()] * f1[i_p.long()]).sum(1)
+    n0sq = (f0 * f0).sum(1)
+
+    def d2_exact(i, rows=slice(None)):
+        return ((f0[rows] - f1[i[rows].long()]) ** 2).sum(1)
+
     err = (d_k.double() - d_p.double()).abs()
     max_err = float(err[fin].max()) if bool(fin.any()) else 0.0
-    if bool((err[fin] > D2_RTOL * scale[fin].clamp_min(1e-30)).any()):
-        fail(f"nn1 {label}: d2 disagrees beyond {D2_RTOL} of |a|^2 + |b|^2")
+    if mma:  # against the exact d2 of the kernel's own row
+        tol = knn.MMA_D2_RTOL
+        scale = n0sq + (f1[i_k.long()] ** 2).sum(1)
+        rel = (d_k.double() - d2_exact(i_k)).abs() / scale.clamp_min(1e-30)
+    else:
+        tol = D2_RTOL
+        scale = n0sq + (f1[i_p.long()] ** 2).sum(1)
+        rel = err / scale.clamp_min(1e-30)
+    max_rel = float(rel[fin].max()) if bool(fin.any()) else 0.0
+    if max_rel > tol:
+        fail(f"nn1 {label}: d2 off by {max_rel:.3e} of |a|^2 + |b|^2 "
+             f"(tolerance {tol:.3e})")
     diff = (i_k != i_p).nonzero()[:, 0]
-    if exact and diff.numel():
-        fail(f"nn1 {label}: {diff.numel()} index mismatches on exact ties")
+    if (exact or bitwise) and diff.numel():
+        fail(f"nn1 {label}: {diff.numel()} index mismatches")
+    if bitwise and max_err != 0.0:
+        fail(f"nn1 {label}: d2 differs from the plain version by {max_err:.3e}")
     if diff.numel():
-        q = f0[diff]
-        dk = ((q - f1[i_k[diff].long()]) ** 2).sum(1)
-        dp = ((q - f1[i_p[diff].long()]) ** 2).sum(1)
-        if bool(((dk - dp).abs() > D2_RTOL * scale[diff]).any()):
+        gap = (d2_exact(i_k, diff) - d2_exact(i_p, diff)).abs()
+        if bool((gap > tol * scale[diff]).any()):
             fail(f"nn1 {label}: an index mismatch is not a near-tie")
-        if diff.numel() > max(1, int(NEAR_TIE_SHARE * num0)):
+    r = {"max_abs_err": max_err, "near_ties": int(diff.numel()),
+         "max_err_of_tolerance": max_rel / tol}
+    if diff.numel() > max(1, int(NEAR_TIE_SHARE * num0)):
+        # More near-ties than the share allows: the input itself is dense in
+        # ties (e.g. random-weight features), so the plain version misses
+        # the exact argmin there too. Kernel B may then miss it no more often.
+        exact_i = argmin_f64(f0[:num0], f1[:num1])
+        r["plain_misses_f64_argmin"] = int((i_p[:num0].long() != exact_i).sum())
+        r["kernel_misses_f64_argmin"] = int((i_k[:num0].long() != exact_i).sum())
+        if not mma or r["kernel_misses_f64_argmin"] > r["plain_misses_f64_argmin"]:
             fail(f"nn1 {label}: {diff.numel()} near-tie rows exceed "
-                 f"{NEAR_TIE_SHARE} of {num0}")
-    print(f"nn1 {label}: rows {F0.shape[0]}x{F1.shape[0]} C={F0.shape[1]} "
-          f"num0={num0} num1={num1} near-tie rows {diff.numel()} "
-          f"max |d2 err| {max_err:.3e}", flush=True)
-    return {"max_abs_err": max_err, "near_ties": int(diff.numel())}
+                 f"{NEAR_TIE_SHARE} of {num0}; against the exact f64 argmin: {r}")
+    print(f"nn1 {label} ({kernel.__name__}): rows {F0.shape[0]}x{F1.shape[0]} "
+          f"C={F0.shape[1]} num0={num0} num1={num1} near-tie rows {diff.numel()} "
+          f"max |d2 - plain| {max_err:.3e}, max d2 error {max_rel / tol:.3f} of "
+          f"the tolerance {r}", flush=True)
+    return r
 
 
-def phase_kernels(knn) -> float:
-    """Kernel vs plain on random inputs at the bench's row counts: full,
-    ragged, no candidate, and exact duplicates; returns the max |d2 err|."""
+def argmin_f64(f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
+    """The exact nearest row of f1 for each f0 row, in f64 (first index on
+    ties), over candidate tiles."""
+    sq0, sq1 = (f0 * f0).sum(1), (f1 * f1).sum(1)
+    best = torch.full_like(sq0, float("inf"))
+    idx = torch.zeros(f0.shape[0], dtype=torch.long, device=f0.device)
+    for s in range(0, f1.shape[0], 2048):
+        d = sq0[:, None] - 2.0 * f0 @ f1[s:s + 2048].T + sq1[None, s:s + 2048]
+        m, a = d.min(1)
+        upd = m < best
+        best, idx = torch.where(upd, m, best), torch.where(upd, a + s, idx)
+    return idx
+
+
+def phase_kernels(knn) -> dict:
+    """Each kernel against the plain version on random inputs at the bench's
+    row counts, at its widths (A: C = 3, 8; B: C = 9, 32, 64): full, ragged,
+    no candidate, and exact duplicates; returns each kernel's max
+    |d2 - plain|."""
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    max_err = 0.0
-    for c in (32, 3):
+    max_err = {"nn1_scan": 0.0, "nn1_mma": 0.0}
+    for c in (3, 8, 9, 32, 64):
+        name = "nn1_scan" if c <= knn.SCAN_MAX_C else "nn1_mma"
         F0 = torch.randn(14400, c, device="cuda", generator=g)
         F1 = torch.randn(14400, c, device="cuda", generator=g)
-        for num0, num1 in ((14400, 14400), (14000, 13001), (14400, 0)):
-            r = check_nn1(knn, F0, F1, num0, num1, False, f"random C={c}")
-            max_err = max(max_err, r["max_abs_err"])
+        checks = [(F0, F1, n0, n1, False, f"random C={c}")
+                  for n0, n1 in ((14400, 14400), (14000, 13001), (14400, 0))]
         base = torch.randn(1000, c, device="cuda", generator=g)
         F1d = base.repeat(8, 1).contiguous()  # every row duplicated 8x
         F0d = F1d[torch.randperm(8000, device="cuda", generator=g)].contiguous()
-        r = check_nn1(knn, F0d, F1d, 8000, 8000, True, f"duplicates C={c}")
-        max_err = max(max_err, r["max_abs_err"])
+        checks.append((F0d, F1d, 8000, 8000, True, f"duplicates C={c}"))
+        for args in checks:
+            max_err[name] = max(max_err[name], check_nn1(knn, *args)["max_abs_err"])
     return max_err
 
 
-def time_nn1(knn, F0, F1, label: str) -> dict:
+def time_nn1(knn, F0, F1, label: str, bitwise: bool = False) -> dict:
     """Kernel vs plain on one main-path input, then the kernel's, the plain
-    version's and one library call's time on it, beside its bound."""
+    version's and one library call's time on it, beside its bound(s). The
+    kernel's ``ms`` is a CUDA graph replay of 50 calls (pre-pass, scan and
+    decode; no host time between them), ``eager_ms`` back-to-back calls."""
+    from deepglobalregistration_tpu_torch.tools.gather_bench import time_ms
+
     n0, n1, c = F0.shape[0], F1.shape[0], F0.shape[1]
-    r = check_nn1(knn, F0, F1, n0, n1, False, label)
-    r["ms"] = cuda_ms(lambda: knn.find_nn_cuda(F0, F1, n0, n1))
+    mma = c > knn.SCAN_MAX_C
+    kernel = knn.nn1_mma if mma else knn.nn1_scan
+    r = check_nn1(knn, F0, F1, n0, n1, False, label, bitwise=bitwise)
+    r["kernel"] = kernel.__name__
+    r["ms"] = time_ms(lambda: kernel(F0, F1, n0, n1))
+    r["eager_ms"] = cuda_ms(lambda: kernel(F0, F1, n0, n1))
     r["plain_ms"] = cuda_ms(lambda: knn.find_nn_plain(F0, F1, n0, n1), 5)
     r["library_ms"] = cuda_ms(lambda: torch.cdist(F0, F1).argmin(1), 5)
-    r["bound_ms"], r["bound_by"] = nn1_bound_ms(n0, n1, c)
+    r["bound_ms"], r["bound_by"] = nn1_bound_ms(n0, n1, c, tensor_cores=mma)
+    bounds = f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}"
+    if mma:
+        r["bound_f32_ms"], _ = nn1_bound_ms(n0, n1, c)
+        bounds += f", tensor cores; f32 non-tensor {r['bound_f32_ms']:.4f} ms"
     r["shape"] = f"{n0}x{n1} C={c}"
-    print(f"nn1 {label} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms, torch.cdist+argmin {r['library_ms']:.4f} ms, "
-          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    print(f"nn1 {label} {r['shape']} ({kernel.__name__}): kernel {r['ms']:.4f} ms "
+          f"(eager {r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+          f"torch.cdist+argmin {r['library_ms']:.4f} ms, {bounds})", flush=True)
     return r
+
+
+def reset_counts(knn) -> None:
+    knn.find_nn_cuda.launches = knn.nn1_scan.launches = knn.nn1_mma.launches = 0
+
+
+def counts(knn) -> dict:
+    return {"nn1_scan": knn.nn1_scan.launches, "nn1_mma": knn.nn1_mma.launches,
+            "total": knn.find_nn_cuda.launches}
 
 
 def pose_errors(T, T_gt):
@@ -320,7 +406,7 @@ def phase_end_to_end(knn) -> dict:
     for t in dgr.stage_timers.values():
         t.reset()
     torch.cuda.reset_peak_memory_stats()
-    knn.find_nn_cuda.launches = 0
+    reset_counts(knn)
     t0 = time.time()
     Ts, branches, iters = [], [], []
     for xyz0, xyz1, _ in pairs:
@@ -329,7 +415,7 @@ def phase_end_to_end(knn) -> dict:
         iters.append(dgr.last_iterations)
     torch.cuda.synchronize()
     dt = (time.time() - t0) / len(pairs)
-    launches = knn.find_nn_cuda.launches
+    launches = counts(knn)
     errs = [pose_errors(T, p[2]) for T, p in zip(Ts, pairs)]
     rre = float(np.mean([e[0] for e in errs]))
     rte = float(np.mean([e[1] for e in errs]))
@@ -352,9 +438,14 @@ def phase_end_to_end(knn) -> dict:
     if dgr.overflow_count:
         fail(f"{dgr.overflow_count} bench pairs overflow the JAX package's "
              "capacities (expected 0)")
-    if launches < 2 * len(pairs):
-        fail(f"nn1 kernel launched {launches} times for {len(pairs)} pairs "
+    if launches["total"] < 2 * len(pairs):
+        fail(f"nn1 kernels launched {launches} times for {len(pairs)} pairs "
              "(expected >= 2 per pair)")
+    # One feature match a pair (nn1_mma), one scan an ICP step (nn1_scan).
+    icp_steps = sum(i.get("icp", 0) for i in iters)
+    if launches["nn1_mma"] < len(pairs) or launches["nn1_scan"] < icp_steps:
+        fail(f"nn1 launches {launches}: expected nn1_mma >= {len(pairs)} and "
+             f"nn1_scan >= {icp_steps} (the ICP steps)")
 
     # The kernel at the main path's own shapes and data: pair 0's feature
     # match, and its last ICP scan (the source moved by the final pose).
@@ -364,7 +455,8 @@ def phase_end_to_end(knn) -> dict:
     moved = se3.apply_transform(
         sel0, torch.as_tensor(Ts[0], dtype=torch.float32, device="cuda"))
     timings = [time_nn1(knn, a0, a1, "feature match (pair 0)"),
-               time_nn1(knn, moved.contiguous(), sel1, "ICP scan (pair 0)")]
+               time_nn1(knn, moved.contiguous(), sel1, "ICP scan (pair 0)",
+                        bitwise=True)]
 
     breakdown(dgr, pairs[0], dt)
     safeguard(dgr, pairs[0])
@@ -479,13 +571,13 @@ def phase_bench_candidates(knn, pairs) -> int:
         default_config(bf16=True, icp_candidates="on", **BENCH), device="cuda")
     dgr.register(pairs[0][0], pairs[0][1])  # warm-up
     dgr.cand_fallbacks = 0
-    knn.find_nn_cuda.launches = 0
+    reset_counts(knn)
     errs, modes = [], []
     for xyz0, xyz1, T_gt in pairs:
         errs.append(pose_errors(dgr.register(xyz0, xyz1), T_gt))
         modes.append(dgr.last_iterations["icp_mode"])
     torch.cuda.synchronize()
-    launches = knn.find_nn_cuda.launches
+    launches = counts(knn)
     rre = float(np.mean([e[0] for e in errs]))
     rte = float(np.mean([e[1] for e in errs]))
     print(json.dumps({"bench_icp_candidates_on": {
@@ -498,8 +590,8 @@ def phase_bench_candidates(knn, pairs) -> int:
     if rre > RRE_DEG or rte > RTE_M:
         fail(f"icp_candidates='on': mean rre {rre:.3f} deg / rte "
              f"{rte * 100:.2f} cm (limits 1 deg / 10 cm)")
-    if launches < len(pairs):
-        fail(f"nn1 launched {launches} times for {len(pairs)} pairs")
+    if launches["nn1_mma"] < len(pairs):
+        fail(f"nn1 launches {launches} for {len(pairs)} pairs")
     return launches
 
 
@@ -518,7 +610,7 @@ def phase_staged(knn, pair) -> dict:
     xyz0, xyz1, T_gt = pair
     dgr = DeepGlobalRegistration(default_config(bf16=True, **BENCH), device="cuda")
     dgr.safeguard_method = "feature_matching"
-    knn.find_nn_cuda.launches = 0
+    reset_counts(knn)
     t0 = time.perf_counter()
     x0, c0, f0 = dgr.preprocess(xyz0)
     x1, c1, f1 = dgr.preprocess(xyz1)
@@ -532,18 +624,18 @@ def phase_staged(knn, pair) -> dict:
         num_iterations=80000)
     torch.cuda.synchronize()
     staged_s = time.perf_counter() - t0
-    staged_launches = knn.find_nn_cuda.launches
+    staged_launches = counts(knn)
     T_polished = icp.registration_icp(
         dgr._as_tensor(x0), dgr._as_tensor(x1), 2 * dgr.voxel_size,
         init=torch.as_tensor(T_staged, dtype=torch.float32, device="cuda")).T
 
     dgr_cpu = DeepGlobalRegistration(
         default_config(bf16=True, knn_search_method="cpu", **BENCH), device="cuda")
-    knn.find_nn_cuda.launches = 0
+    reset_counts(knn)
     t0 = time.perf_counter()
     T_cpu = dgr_cpu.register(xyz0, xyz1)
     cpu_s = time.perf_counter() - t0
-    cpu_launches = knn.find_nn_cuda.launches
+    cpu_launches = counts(knn)
     e_staged, e_cpu = pose_errors(T_staged, T_gt), pose_errors(T_cpu, T_gt)
     e_pol = pose_errors(T_polished.double().cpu().numpy(), T_gt)
     print(json.dumps({"staged_feature_matching": {
@@ -561,8 +653,9 @@ def phase_staged(knn, pair) -> dict:
         if rre > RRE_DEG or rte > RTE_M:
             fail(f"{name}: rre {rre:.3f} deg / rte {rte * 100:.2f} cm "
                  "(limits 1 deg / 10 cm)")
-    # fcgf_feature_matching and ransac_feature_matching each match once.
-    if staged_launches < 2 or cpu_launches < 1:
+    # fcgf_feature_matching and ransac_feature_matching each match once (C =
+    # 32); with host KD-tree matching only the ICP scans (C = 3) reach the card.
+    if staged_launches["nn1_mma"] < 2 or cpu_launches["nn1_scan"] < 1:
         fail(f"nn1 launches: staged {staged_launches}, knn cpu {cpu_launches}")
     return {"staged": staged_launches, "knn_cpu": cpu_launches}
 
@@ -653,7 +746,7 @@ def phase_kitti(knn) -> dict:
         tm.reset()
     dgr.cand_fallbacks = dgr.overflow_count = 0
     torch.cuda.reset_peak_memory_stats()
-    knn.find_nn_cuda.launches = 0
+    reset_counts(knn)
     Ts, branches, iters, falls = [], [], [], []
     t0 = time.time()
     for xyz0, xyz1, _ in pairs:
@@ -664,7 +757,8 @@ def phase_kitti(knn) -> dict:
         falls.append(dgr.cand_fallbacks - before)
     torch.cuda.synchronize()
     dt = (time.time() - t0) / len(pairs)
-    launches = knn.find_nn_cuda.launches
+    launches = counts(knn)
+    icp_auto_s = dgr.stage_timers["icp"].avg
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     errs = [pose_errors(T, p[2]) for T, p in zip(Ts, pairs)]
     x0, x1 = dgr._as_tensor(pairs[0][0]), dgr._as_tensor(pairs[0][1])
@@ -685,16 +779,43 @@ def phase_kitti(knn) -> dict:
         fail("KITTI scale: non-finite or misshapen transform")
     if any(i.get("icp_mode") != "candidates" for i in iters):
         fail("KITTI scale: a pair did not take candidate-list ICP")
-    if launches < len(pairs):
-        fail(f"KITTI scale: nn1 launched {launches} times for {len(pairs)} pairs")
+    # One feature match a pair (nn1_mma); each fallback runs the full scan.
+    if launches["nn1_mma"] < len(pairs) or launches["nn1_scan"] < sum(falls):
+        fail(f"KITTI scale: nn1 launches {launches} for {len(pairs)} pairs and "
+             f"{sum(falls)} full-scan fallbacks")
+    icp_modes = icp_auto_vs_off(dgr, pairs, icp_auto_s)
 
     moved = se3.apply_transform(
         sel0, torch.as_tensor(Ts[0], dtype=torch.float32, device="cuda"))
     timings = [time_nn1(knn, a0, a1, "KITTI feature match (pair 0)"),
-               time_nn1(knn, moved.contiguous(), sel1, "KITTI fallback scan (pair 0)")]
+               time_nn1(knn, moved.contiguous(), sel1, "KITTI fallback scan (pair 0)",
+                        bitwise=True)]
     breakdown(dgr, pairs[0], dt, "kitti")
     icp_r = kitti_icp_check(sel0, sel1, pairs[0][2], dgr.voxel_size)
-    return {"launches": launches, "timings": timings, "icp": icp_r}
+    return {"launches": launches, "timings": timings, "icp": icp_r,
+            "icp_modes": icp_modes}
+
+
+def icp_auto_vs_off(dgr, pairs, auto_s: float) -> dict:
+    """register()'s icp stage on the KITTI pairs with icp_candidates="off"
+    (the full scan only), then "auto" (candidate lists at the 65536 bucket,
+    the checked fallback) once more, in the same call as the first "auto"
+    run: whether the candidate path pays against the full scan."""
+    r = {"icp_auto_s_per_pair": [auto_s]}
+    for mode in ("off", "auto"):
+        dgr.icp_candidates = mode
+        dgr.stage_timers["icp"].reset()
+        iters = []
+        for xyz0, xyz1, _ in pairs:
+            dgr.register(xyz0, xyz1)
+            iters.append(dgr.last_iterations.get("icp"))
+        torch.cuda.synchronize()
+        r[f"icp_{mode}_s_per_pair"] = r.get(f"icp_{mode}_s_per_pair", []) + [
+            dgr.stage_timers["icp"].avg]
+        r[f"icp_{mode}_iterations"] = iters
+    dgr.icp_candidates = "auto"
+    print(json.dumps({"kitti_icp_auto_vs_off": r}), flush=True)
+    return r
 
 
 def main() -> int:
@@ -721,28 +842,31 @@ def main() -> int:
     kitti = phase_kitti(knn)
     feat, scan = e["timings"]
     kfeat, kscan = kitti["timings"]
-    entry = {"name": "nn1", "route": "cuda",
-             "source": "deepglobalregistration_tpu_torch/csrc/nn1.cu",
-             "replaces": "deepglobalregistration_tpu/ops/pallas_knn.py:33",
-             "launches": e["launches"],
-             "max_abs_err": max(synth_err, feat["max_abs_err"], scan["max_abs_err"],
-                                kfeat["max_abs_err"], kscan["max_abs_err"]),
-             "ms": feat["ms"], "plain_ms": feat["plain_ms"],
-             "bound_ms": feat["bound_ms"], "bound_by": feat["bound_by"],
-             "library_ms": feat["library_ms"],
-             "shape": f"feature match {feat['shape']}; *_c3: ICP scan {scan['shape']}; "
-                      f"*_kitti: KITTI feature match {kfeat['shape']}; *_kitti_c3: "
-                      f"KITTI fallback scan {kscan['shape']}",
-             "ms_c3": scan["ms"], "plain_ms_c3": scan["plain_ms"],
-             "bound_ms_c3": scan["bound_ms"], "bound_by_c3": scan["bound_by"],
-             "library_ms_c3": scan["library_ms"]}
-    for suffix, r in (("kitti", kfeat), ("kitti_c3", kscan)):
-        entry.update({f"{k}_{suffix}": r[k] for k in
-                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    entry.update(launches_kitti=kitti["launches"],
-                 launches_bench_icp_candidates=cand_launches,
-                 launches_staged=staged["staged"], launches_knn_cpu=staged["knn_cpu"])
-    print(json.dumps({"kernels": [entry] + gather_entries}), flush=True)
+    entries = []
+    for name, bench_r, kitti_r, path in (
+            ("nn1_scan", scan, kscan, "ICP scan"),
+            ("nn1_mma", feat, kfeat, "feature match")):
+        entry = {"name": name, "route": "cuda",
+                 "source": f"deepglobalregistration_tpu_torch/csrc/{name}.cu",
+                 "replaces": "deepglobalregistration_tpu/ops/pallas_knn.py:33",
+                 "launches": e["launches"][name],
+                 "max_abs_err": max(synth_err[name], bench_r["max_abs_err"],
+                                    kitti_r["max_abs_err"]),
+                 "shape": f"bench {path} {bench_r['shape']}; *_kitti: KITTI "
+                          f"{path} {kitti_r['shape']}"}
+        for suffix, r in (("", bench_r), ("_kitti", kitti_r)):
+            keys = ["ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "near_ties", "max_err_of_tolerance"]
+            if name == "nn1_mma":
+                keys.append("bound_f32_ms")
+            entry.update({f"{k}{suffix}": r[k] for k in keys})
+        entry.update({f"launches_{k}": v[name] for k, v in (
+            ("kitti", kitti["launches"]), ("bench_icp_candidates", cand_launches),
+            ("staged", staged["staged"]), ("knn_cpu", staged["knn_cpu"]))})
+        entries.append(entry)
+    entries[1]["bound_note"] = ("bound_ms: 3 x 2 N0 N1 C TF32 operations at 495 "
+                                "TFLOP/s; bound_f32_ms: N0 N1 (2C + 3) at 67 TFLOP/s")
+    print(json.dumps({"kernels": entries + gather_entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,12 @@ easy to find: ``ops/`` (geometry, grids, kernel maps, sparse convolution,
 ``DeepGlobalRegistration`` pipeline), ``utils/`` (device policy, checkpoint
 loading, weight conversion), ``tools/`` (the gather probe).
 
-The feature 1-NN and the ICP 1-NN run through a hand-written CUDA kernel
-(``csrc/nn1.cu``), and the gather probe through two more (``csrc/gather.cu``),
-built with ``nvcc`` for ``sm_90a`` at first use.
+The 1-NN searches run through two hand-written CUDA kernels, chosen by the
+rows' width: the ICP's xyz scan through a register-tiled CUDA-core scan
+(``csrc/nn1_scan.cu``, C <= 8) and the feature match through a 3xTF32
+tensor-core kernel (``csrc/nn1_mma.cu``, 8 < C <= 64). The gather probe runs
+through two more (``csrc/gather.cu``). All are built with ``nvcc`` for
+``sm_90a`` at first use.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources into shared libraries and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
-``_build/lib<name>-<hash>.so`` (the hash is of the source, so an edited
-source rebuilds) at first use. Nothing here runs at import time.
+``_build/lib<name>-<hash>.so`` (the hash is of the source and the ``*.cuh``
+headers beside it, so an edited source or header rebuilds) at first use. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD = PKG_DIR / "_build"
-SOURCES = ("nn1", "gather")
+SOURCES = ("nn1_scan", "nn1_mma", "gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -35,7 +35,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a shared header rebuilds all
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 

@@ -8,8 +8,17 @@ exactly duplicated candidates, where ties are exact, indices must be equal
 with no exception. Squared distances agree to rtol 1e-6 (plus an absolute
 1e-6 of the terms' magnitude for near-zero distances).
 
+Kernel B's arithmetic (``csrc/nn1_mma.cu``, 3xTF32 on the tensor cores)
+is emulated with torch bit rounding at C = 32 and held to its contract: d2
+within ``knn.MMA_D2_RTOL`` (2^-20) of |a|^2 + |b|^2 against the f64 value,
+the index equal to the JAX scan's except near-ties within that tolerance
+(at most 1e-4 of the rows, at least one), and equal with no exception on
+exact duplicates.
+
 The device guard: a CUDA-only wrapper never runs the plain version on CPU
 tensors, and the dispatcher takes the plain version only for CPU tensors.
+``find_nn_cuda`` sends C <= 8 to kernel A (``nn1_scan``) and 8 < C <= 64 to
+kernel B (``nn1_mma``).
 """
 
 import jax.numpy as jnp
@@ -100,3 +109,76 @@ def test_cuda_wrapper_rejects_unsupported_widths(c):
     F = torch.zeros(4, c)
     with pytest.raises(ValueError, match="C <= 64"):
         knn.find_nn_cuda(F, F, 4, 4)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the dropped 13 bits to
+    the magnitude's bit pattern, then clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mma_emulated(F0: torch.Tensor, F1: torch.Tensor):
+    """Kernel B's arithmetic in plain torch: hi = tf32(x), lo = tf32(x - hi),
+    cross = hi.hi + (lo.hi + hi.lo) (tf32 products are exact in f32), and
+    d2 = |a|^2 - 2 cross + |b|^2 from the plain version's norms."""
+    h0, h1 = _tf32(F0), _tf32(F1)
+    l0, l1 = _tf32(F0 - h0), _tf32(F1 - h1)
+    cross = h0 @ h1.T + (l0 @ h1.T + h0 @ l1.T)
+    d = knn._sq_norms(F0)[:, None] - 2.0 * cross + knn._sq_norms(F1)[None, :]
+    idx = torch.argmin(d, dim=1)  # first minimum: the lowest index
+    return idx.numpy(), torch.gather(d, 1, idx[:, None])[:, 0].numpy()
+
+
+@pytest.mark.parametrize("kind", ["randn", "unit", "duplicates"])
+def test_mma_3xtf32_emulation_meets_the_contract(kind):
+    one = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
+    assert _tf32(one).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
+    n0, n1, c = 2000, 3000, 32
+    if kind == "duplicates":
+        F0, F1 = _inputs(n0, n1, c, seed=11, dup=True)
+    else:
+        F0, F1 = _inputs(n0, n1, c, seed=5)
+        if kind == "unit":  # FCGF features are unit-norm
+            F0 /= np.linalg.norm(F0, axis=1, keepdims=True)
+            F1 /= np.linalg.norm(F1, axis=1, keepdims=True)
+    idx, d = _mma_emulated(torch.from_numpy(F0), torch.from_numpy(F1))
+    j_idx, _ = jknn.find_nn(jnp.asarray(F0), jnp.asarray(F1), jnp.int32(n0),
+                            jnp.int32(n1))
+    j_idx = np.asarray(j_idx)
+    f0, f1 = F0.astype(np.float64), F1.astype(np.float64)
+    tol = knn.MMA_D2_RTOL * ((f0 ** 2).sum(1) + (f1[idx] ** 2).sum(1))
+    exact = ((f0 - f1[idx]) ** 2).sum(1)
+    assert np.all(np.abs(d - exact) <= tol)
+    diff = np.nonzero(idx != j_idx)[0]
+    if kind == "duplicates":
+        assert diff.size == 0
+    dj = ((f0[diff] - f1[j_idx[diff]]) ** 2).sum(1)
+    assert np.all(np.abs(exact[diff] - dj) <= tol[diff])
+    assert diff.size <= max(1, int(1e-4 * n0))
+
+
+@pytest.mark.parametrize("c,kernel", [(3, "nn1_scan"), (8, "nn1_scan"),
+                                      (9, "nn1_mma"), (32, "nn1_mma"),
+                                      (64, "nn1_mma"), (0, None), (65, None)])
+def test_find_nn_cuda_dispatches_by_width(monkeypatch, c, kernel):
+    """The launch step (``_call``, which loads the kernel's library) is
+    replaced by a recorder, so CPU tensors reach the dispatch."""
+    calls = []
+    monkeypatch.setattr(knn, "_call", lambda name, *args: calls.append(name))
+    for wrapper in (knn.find_nn_cuda, knn.nn1_scan, knn.nn1_mma):
+        monkeypatch.setattr(wrapper, "launches", 0)
+    F = torch.zeros(6, c)
+    if kernel is None:
+        with pytest.raises(ValueError, match="C <= 64"):
+            knn.find_nn_cuda(F, F, 6, 6)
+        assert calls == []
+        return
+    idx, d = knn.find_nn_cuda(F, F, 6, 6)
+    assert calls == [kernel] and idx.shape == d.shape == (6,)
+    assert knn.find_nn_cuda.launches == 1
+    assert (knn.nn1_scan.launches, knn.nn1_mma.launches) == (
+        (1, 0) if kernel == "nn1_scan" else (0, 1))
+    other = knn.nn1_mma if kernel == "nn1_scan" else knn.nn1_scan
+    with pytest.raises(ValueError, match="C <= "):
+        other(F, F, 6, 6)  # each kernel takes only its own widths

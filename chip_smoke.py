@@ -45,10 +45,27 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      candidate against full-scan ICP on pair 0 from a near-converged init
      (their poses must agree) and from a coarse init (the checked ICP must
      fall back to the full scan's exact answer);
-  8. print one JSON line describing every kernel, the card's line, and as
+  8. the batched 1-NN kernels (``nn1_scan_batched``, ``nn1_mma_batched``)
+     on random ragged batches (a pair with num1 = 0, one with num0 = 0):
+     each pair bit for bit its unbatched launch, which is held to the plain
+     version as in phase 2;
+  9. ``register_batch(..., force_vmapped=True)`` at the bench configuration:
+     the four bench pairs as one sub-batch after a warm-up call, held to the
+     bench's pose limits and against ``register()`` beside two
+     ``register()`` calls' own spread; the batched kernels at that path's
+     match and ICP-scan shapes (bit for bit the unbatched launches, timed
+     beside the unbatched launches, the plain version, ``torch.cdist`` and
+     the bound); ``bench.py``'s 8-pair stream (two sub-batches) against
+     ``register_many`` in turns, with each run's peak memory; one profiled
+     batch call;
+ 10. ``register_batch`` on the three KITTI-scale pairs (the 65536 bucket, so
+     candidate-list ICP without the checked wrapper): finite poses, a rerun
+     for exactly the pairs whose gate bit or ``cand_ok`` is false, the time
+     of the batched program apart from the reruns;
+ 11. print one JSON line describing every kernel, the card's line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
-Each path (4-7) is driven with the kernels' launch counts set to 0 just
+Each path (4-7, 9, 10) is driven with the kernels' launch counts set to 0 just
 before it and read just after; launches made to compare a kernel with its
 plain version are not counted. Imports nothing of JAX. Exits non-zero when
 no CUDA device is visible.
@@ -121,14 +138,17 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def nn1_bound_ms(n0: int, n1: int, c: int, tensor_cores: bool = False):
+def nn1_bound_ms(n0, n1, c: int, tensor_cores: bool = False):
     """(ms, by): the larger of the operations' and the bytes' time. The f32
     bound counts N0 N1 (2C + 3) operations (dot product FMAs, d2 formula,
     compare) at 67 TFLOP/s; the tensor-core bound 3 x 2 N0 N1 C (three TF32
-    products) at 495 TFLOP/s."""
-    ops = 3 * 2 * n0 * n1 * c if tensor_cores else n0 * n1 * (2 * c + 3)
+    products) at 495 TFLOP/s. For a batch, n0 and n1 are the pairs' counts
+    and the work is summed over the pairs."""
+    pairs = list(zip(n0, n1)) if isinstance(n0, (list, tuple)) else [(n0, n1)]
+    ops = sum(3 * 2 * a * b * c if tensor_cores else a * b * (2 * c + 3)
+              for a, b in pairs)
     t_ops = ops / (PEAK_TF32_FLOPS if tensor_cores else PEAK_F32_FLOPS)
-    t_bytes = ((n0 + n1) * c * 4 + n0 * 8) / PEAK_BYTES
+    t_bytes = sum((a + b) * c * 4 + a * 8 for a, b in pairs) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -259,13 +279,60 @@ def time_nn1(knn, F0, F1, label: str, bitwise: bool = False) -> dict:
     return r
 
 
+def check_nn1_batched(knn, F0, F1, num0, num1, label: str,
+                      against_plain: bool = True) -> dict:
+    """The width's batched kernel on [B, N, C] inputs with per-pair counts:
+    each pair's (idx, d2) must equal the unbatched kernel's on that pair bit
+    for bit (all rows, padding included), and (``against_plain``) each
+    unbatched result must meet ``check_nn1``'s tolerances against the plain
+    version; returns the max |d2 - plain| over the pairs."""
+    mma = F0.shape[-1] > knn.SCAN_MAX_C
+    kernel = knn.nn1_mma_batched if mma else knn.nn1_scan_batched
+    single = knn.nn1_mma if mma else knn.nn1_scan
+    i_b, d_b = kernel(F0, F1, knn.pair_counts(num0, num1, F0.device))
+    torch.cuda.synchronize()
+    err = 0.0
+    for p in range(F0.shape[0]):
+        i_s, d_s = single(F0[p], F1[p], num0[p], num1[p])
+        torch.cuda.synchronize()
+        if not (torch.equal(i_b[p], i_s) and torch.equal(d_b[p].view(torch.int32),
+                                                          d_s.view(torch.int32))):
+            fail(f"nn1 batched {label}: pair {p} differs from its unbatched launch")
+        if against_plain:
+            err = max(err, check_nn1(knn, F0[p], F1[p], num0[p], num1[p], False,
+                                     f"{label} pair {p}")["max_abs_err"])
+    print(f"nn1 batched {label} ({kernel.__name__}): {tuple(F0.shape)} x "
+          f"{tuple(F1.shape)}, num0 {list(num0)}, num1 {list(num1)}: every pair "
+          "bit for bit its unbatched launch", flush=True)
+    return {"max_abs_err": err}
+
+
+def phase_batch_kernels_random(knn) -> dict:
+    """Both batched kernels on random ragged batches at the bench's row
+    counts (C = 3 and 32; a full pair, ragged pairs, num1 = 0 and num0 = 0)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    num0, num1 = [14400, 13001, 14000, 0], [15300, 15000, 0, 9000]
+    err = {}
+    for c in (3, 32):
+        F0 = torch.randn(4, 14400, c, device="cuda", generator=g)
+        F1 = torch.randn(4, 15300, c, device="cuda", generator=g)
+        name = "nn1_mma_batched" if c > knn.SCAN_MAX_C else "nn1_scan_batched"
+        err[name] = check_nn1_batched(knn, F0, F1, num0, num1,
+                                      f"random ragged C={c}")["max_abs_err"]
+    return err
+
+
 def reset_counts(knn) -> None:
     knn.find_nn_cuda.launches = knn.nn1_scan.launches = knn.nn1_mma.launches = 0
+    knn.nn1_scan_batched.launches = knn.nn1_mma_batched.launches = 0
 
 
 def counts(knn) -> dict:
     return {"nn1_scan": knn.nn1_scan.launches, "nn1_mma": knn.nn1_mma.launches,
-            "total": knn.find_nn_cuda.launches}
+            "total": knn.find_nn_cuda.launches,
+            "nn1_scan_batched": knn.nn1_scan_batched.launches,
+            "nn1_mma_batched": knn.nn1_mma_batched.launches}
 
 
 def pose_errors(T, T_gt):
@@ -319,32 +386,38 @@ def breakdown(dgr, pair, sec_per_pair: float, label: str = "bench") -> None:
         "fcgf_plan_ms": ms_plan3, "fcgf_net_ms": ms_net3,
         "inlier_plan_ms": ms_plan6, "inlier_net_ms": ms_net6}), flush=True)
 
+    busy = profile_busy(lambda: dgr.register(pair[0], pair[1]), sec_per_pair)
+    if busy is not None:
+        print(json.dumps({"config": label, **busy}), flush=True)
+
+
+def profile_busy(fn, unprofiled_s: float) -> dict | None:
+    """One fn() under torch.profiler: its wall time, the CUDA kernels' busy
+    time and launches, the top ten kernels, and the busy share over the
+    profiled wall time and over ``unprofiled_s`` (the same work's time
+    without the profiler). None when the profiler saw no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        dgr.register(pair[0], pair[1])
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
     # Kernel rows only (operator rows repeat their kernels' device time).
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if dev_ms <= 0:
         print("device busy share: not measured (the profiler saw no device time)")
-        return
+        return None
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    print(json.dumps({
-        "config": label,
-        "profiled_register_wall_ms": wall * 1e3,
-        "device_kernel_ms": dev_ms,
-        "device_busy_share_profiled": dev_ms / (wall * 1e3),
-        "device_busy_share_unprofiled": dev_ms / (sec_per_pair * 1e3),
-        "device_kernel_launches": sum(e.count for e in kernels),
-        "top_kernels_ms": {e.key[:70]: e.self_device_time_total / 1e3 for e in top},
-    }), flush=True)
+    return {"profiled_wall_ms": wall * 1e3, "device_kernel_ms": dev_ms,
+            "device_busy_share_profiled": dev_ms / (wall * 1e3),
+            "device_busy_share_unprofiled": dev_ms / (unprofiled_s * 1e3),
+            "device_kernel_launches": sum(e.count for e in kernels),
+            "top_kernels_ms": {e.key[:70]: e.self_device_time_total / 1e3
+                               for e in top}}
 
 
 def safeguard(dgr, pair) -> None:
@@ -818,6 +891,178 @@ def icp_auto_vs_off(dgr, pairs, auto_s: float) -> dict:
     return r
 
 
+def time_nn1_batched(knn, F0, F1, num0, num1, label: str) -> dict:
+    """The batched kernel on one main-path batch: its time (a CUDA graph
+    replay, as ``time_nn1``), the sum of the unbatched kernel's times on the
+    same pairs, the plain version's and one library call's
+    (``torch.cdist`` + ``argmin`` over the padded [B, ...] tensors), beside
+    the bound summed over the pairs' own counts."""
+    from deepglobalregistration_tpu_torch.tools.gather_bench import time_ms
+
+    c = F0.shape[-1]
+    mma = c > knn.SCAN_MAX_C
+    kernel = knn.nn1_mma_batched if mma else knn.nn1_scan_batched
+    single = knn.nn1_mma if mma else knn.nn1_scan
+    nums = knn.pair_counts(num0, num1, F0.device)
+    r = {"kernel": kernel.__name__,
+         "ms": time_ms(lambda: kernel(F0, F1, nums)),
+         "unbatched_sum_ms": sum(time_ms(lambda p=p: single(F0[p], F1[p], num0[p], num1[p]))
+                                 for p in range(F0.shape[0])),
+         "plain_ms": cuda_ms(lambda: knn.find_nn_batched_plain(F0, F1, num0, num1), 3),
+         "library_ms": cuda_ms(lambda: torch.cdist(F0, F1).argmin(-1), 3),
+         "shape": f"{F0.shape[0]} pairs, num0 {list(num0)} x num1 {list(num1)}, C={c}"}
+    r["bound_ms"], r["bound_by"] = nn1_bound_ms(list(num0), list(num1), c,
+                                                tensor_cores=mma)
+    print(f"nn1 batched {label} {r['shape']} ({kernel.__name__}): kernel "
+          f"{r['ms']:.4f} ms, unbatched launches {r['unbatched_sum_ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms, torch.cdist+argmin {r['library_ms']:.4f} "
+          f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return r
+
+
+def _check_batch_launches(r: dict, label: str) -> None:
+    """One batched feature match a sub-batch, and with the full-scan ICP one
+    batched scan an ICP step of the sub-batch's longest pair plus the
+    evaluation of the init; the reruns' launches are register()'s own."""
+    from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
+
+    m = DeepGlobalRegistration._MAX_SUB_BATCH
+    lb, launches = r["last_batch"], r["launches"]
+    subs = len(lb["cap"])
+    want_scan = 0
+    for s, mode in enumerate(lb["icp_mode"]):
+        part = slice(m * s, m * s + m)
+        icp = [i for i, g in zip(lb["icp"][part], lb["gate"][part]) if g]
+        if mode == "full" and icp:
+            want_scan += max(icp) + 1
+    if launches["nn1_mma_batched"] != subs or launches["nn1_scan_batched"] != want_scan:
+        fail(f"{label}: batched launches {launches}, expected nn1_mma_batched "
+             f"{subs} and nn1_scan_batched {want_scan}")
+    if launches["nn1_mma"] != sum(lb["rerun"]):
+        fail(f"{label}: {sum(lb['rerun'])} reruns but nn1_mma launched "
+             f"{launches['nn1_mma']} times")
+
+
+def phase_batch(knn) -> dict:
+    """register_batch(force_vmapped=True) at the bench configuration: the
+    four bench pairs as one sub-batch (after a warm-up call), each pose held
+    to the bench's limits and against register() on the same pair beside two
+    register() calls' own spread; the batched kernels at that path's shapes;
+    bench.py's 8-pair stream (two sub-batches) against register_many on the
+    same pairs in the same call (turns: batch, many, many, batch); one
+    profiled batch call."""
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
+    from deepglobalregistration_tpu_torch.ops import se3
+    from deepglobalregistration_tpu_torch.utils.synthetic import synthetic_pair
+
+    from deepglobalregistration_tpu_torch.tools import batch_bench
+
+    dgr = DeepGlobalRegistration(default_config(bf16=True, **BENCH), device="cuda")
+    pairs = [synthetic_pair(n=30000, seed=s) for s in range(4)]
+    x0s, x1s = [p[0] for p in pairs], [p[1] for p in pairs]
+    dgr.register_batch(x0s, x1s, force_vmapped=True)  # warm-up
+    r4 = batch_bench.run_turn(dgr, "batch", x0s, x1s)
+    lb = r4["last_batch"]
+    errs = [pose_errors(T, p[2]) for T, p in zip(r4["T"], pairs)]
+    rre = float(np.mean([e[0] for e in errs]))
+    rte = float(np.mean([e[1] for e in errs]))
+    Tr = [[dgr.register(*p[:2]) for p in pairs] for _ in range(2)]
+    gap = [float(np.abs(Tb - T).max()) for Tb, T in zip(r4["T"], Tr[0])]
+    spread = [float(np.abs(a - b).max()) for a, b in zip(*Tr)]
+    out4 = {k: v for k, v in r4.items() if k != "T"}
+    print(json.dumps({"batch_bench_4": {
+        **out4, "rre_deg": rre, "rte_cm": rte * 100,
+        "rre_deg_per_pair": [e[0] for e in errs],
+        "rte_cm_per_pair": [e[1] * 100 for e in errs],
+        "max_abs_T_batch_minus_register": gap,
+        "max_abs_T_register_spread": spread}}), flush=True)
+    if not all(np.isfinite(T).all() for T in r4["T"]) or r4["T"].shape != (4, 4, 4):
+        fail("register_batch: non-finite or misshapen transforms")
+    if rre > RRE_DEG or rte > RTE_M:
+        fail(f"register_batch: mean rre {rre:.3f} deg / rte {rte * 100:.2f} cm "
+             "(limits 1 deg / 10 cm)")
+    _check_batch_launches(r4, "register_batch (bench, 4 pairs)")
+
+    # The batched kernels at this path's shapes: the four pairs' features
+    # (C = 32) and their last ICP scan (C = 3, each source at its pose).
+    from torch.nn.utils.rnn import pad_sequence
+
+    feats = [dgr.features(dgr._as_tensor(a), dgr._as_tensor(b)) for a, b in zip(x0s, x1s)]
+    n0 = [int(f[0].shape[0]) for f in feats]
+    n1 = [int(f[1].shape[0]) for f in feats]
+    F0 = pad_sequence([f[4] for f in feats], batch_first=True).contiguous()
+    F1 = pad_sequence([f[5] for f in feats], batch_first=True).contiguous()
+    moved = pad_sequence([se3.apply_transform(f[0], torch.as_tensor(
+        T, dtype=torch.float32, device="cuda")) for f, T in zip(feats, r4["T"])],
+        batch_first=True).contiguous()
+    S1 = pad_sequence([f[1] for f in feats], batch_first=True).contiguous()
+    err = {"nn1_mma_batched": check_nn1_batched(knn, F0, F1, n0, n1,
+                                                "bench feature match")["max_abs_err"],
+           "nn1_scan_batched": check_nn1_batched(knn, moved, S1, n0, n1,
+                                                 "bench ICP scan")["max_abs_err"]}
+    timings = {"nn1_mma_batched": time_nn1_batched(knn, F0, F1, n0, n1,
+                                                   "bench feature match"),
+               "nn1_scan_batched": time_nn1_batched(knn, moved, S1, n0, n1,
+                                                    "bench ICP scan")}
+
+    # bench.py's stream: the four pairs twice, two sub-batches, in turns
+    # with register_many on the same pairs.
+    stream = [pairs[i % 4] for i in range(8)]
+    cmp = batch_bench.compare(dgr, [p[0] for p in stream], [p[1] for p in stream])
+    cmp.pop("T_batch")
+    for t in cmp["turns"]:
+        if t["kind"] == "batch":
+            _check_batch_launches(t, "register_batch (bench stream, 8 pairs)")
+    busy = profile_busy(lambda: dgr.register_batch(x0s, x1s, force_vmapped=True),
+                        4 * r4["s_per_pair"])
+    print(json.dumps({"batch_stream_8": {**cmp, "profiled_batch_4": busy}}), flush=True)
+    return {"launches": r4["launches"], "max_abs_err": err, "timings": timings,
+            "s_per_pair": cmp["mean_s_per_pair"]}
+
+
+def phase_batch_kitti(knn) -> dict:
+    """register_batch(force_vmapped=True) on the three KITTI-scale pairs
+    (one sub-batch at the 65536 bucket, so candidate-list ICP without the
+    checked wrapper) after a warm-up call: finite poses, and a rerun for
+    exactly the pairs whose gate bit or cand_ok is false; the batched match
+    kernel against its unbatched launches on those pairs' features."""
+    from torch.nn.utils.rnn import pad_sequence
+
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
+    from deepglobalregistration_tpu_torch.utils.synthetic import lidar_like_pair
+
+    from deepglobalregistration_tpu_torch.tools import batch_bench
+
+    dgr = DeepGlobalRegistration(default_config(bf16=True, **KITTI), device="cuda")
+    pairs = [lidar_like_pair(seed=s)[:2] for s in range(3)]
+    x0s, x1s = [p[0] for p in pairs], [p[1] for p in pairs]
+    dgr.register_batch(x0s, x1s, force_vmapped=True)  # warm-up
+    r = batch_bench.run_turn(dgr, "batch", x0s, x1s)
+    lb = r["last_batch"]
+    want = [not (g and c) for g, c in zip(lb["gate"], lb["cand_ok"])]
+    print(json.dumps({"batch_kitti_3": {
+        **{k: v for k, v in r.items() if k != "T"},
+        "rerun_s": 3 * r["s_per_pair"] - r["batched_program_s"]}}), flush=True)
+    if not np.isfinite(r["T"]).all():
+        fail("register_batch at KITTI scale: non-finite transforms")
+    if lb["cap"] != [65536] or lb["icp_mode"] != ["candidates"]:
+        fail(f"register_batch at KITTI scale: bucket {lb['cap']}, ICP {lb['icp_mode']}")
+    if lb["rerun"] != want:
+        fail(f"register_batch at KITTI scale: reruns {lb['rerun']}, gate "
+             f"{lb['gate']}, cand_ok {lb['cand_ok']}")
+    _check_batch_launches(r, "register_batch (KITTI, 3 pairs)")
+    feats = [dgr.features(dgr._as_tensor(a), dgr._as_tensor(b)) for a, b in pairs]
+    n0 = [int(f[0].shape[0]) for f in feats]
+    n1 = [int(f[1].shape[0]) for f in feats]
+    F0 = pad_sequence([f[4] for f in feats], batch_first=True).contiguous()
+    F1 = pad_sequence([f[5] for f in feats], batch_first=True).contiguous()
+    check_nn1_batched(knn, F0, F1, n0, n1, "KITTI feature match", against_plain=False)
+    return {"launches": r["launches"],
+            "timing": time_nn1_batched(knn, F0, F1, n0, n1, "KITTI feature match")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
@@ -840,6 +1085,9 @@ def main() -> int:
     cand_launches = phase_bench_candidates(knn, e["pairs"])
     staged = phase_staged(knn, e["pairs"][0])
     kitti = phase_kitti(knn)
+    batch_err = phase_batch_kernels_random(knn)
+    batch = phase_batch(knn)
+    batch_kitti = phase_batch_kitti(knn)
     feat, scan = e["timings"]
     kfeat, kscan = kitti["timings"]
     entries = []
@@ -866,6 +1114,25 @@ def main() -> int:
         entries.append(entry)
     entries[1]["bound_note"] = ("bound_ms: 3 x 2 N0 N1 C TF32 operations at 495 "
                                 "TFLOP/s; bound_f32_ms: N0 N1 (2C + 3) at 67 TFLOP/s")
+    for name, path in (("nn1_scan_batched", "ICP scan"),
+                       ("nn1_mma_batched", "feature match")):
+        r = batch["timings"][name]
+        entry = {"name": name, "route": "cuda",
+                 "source": "deepglobalregistration_tpu_torch/csrc/"
+                           f"{name.replace('_batched', '')}.cu",
+                 "replaces": "deepglobalregistration_tpu/ops/pallas_knn.py:33",
+                 "launches": batch["launches"][name],
+                 "max_abs_err": max(batch_err[name], batch["max_abs_err"][name]),
+                 "shape": f"register_batch bench {path} (the TPU kernel under "
+                          f"vmap): {r['shape']}",
+                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "unbatched_sum_ms")},
+                 "launches_kitti": batch_kitti["launches"][name]}
+        if name == "nn1_mma_batched":
+            k = batch_kitti["timing"]
+            entry.update({f"{key}_kitti": k[key] for key in (
+                "ms", "unbatched_sum_ms", "plain_ms", "library_ms", "bound_ms")})
+        entries.append(entry)
     print(json.dumps({"kernels": entries + gather_entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

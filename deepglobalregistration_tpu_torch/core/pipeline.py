@@ -1,7 +1,8 @@
 """DeepGlobalRegistration — the end-to-end registration pipeline on the card.
 
 Counterpart of the JAX package's ``core/pipeline.py:71-202`` (construction),
-of ``register()`` (``:821-979``) and of the staged API (``:607-728``):
+of ``register()`` (``:821-979``), of ``register_batch`` (``:427-591``) and
+of the staged API (``:607-728``):
 
   voxelize both clouds -> FCGF forward (one batch of B = 2 clouds) ->
   feature 1-NN (CUDA kernel, or a host KD-tree with
@@ -21,6 +22,13 @@ voxel counts, and its maps are exact. The voxel bucket is still computed,
 because the ICP mode keys on it as in the JAX package. ``overflow_count``
 counts the pairs on which the JAX package's fixed capacities would have
 dropped kernel-map entries (``models/unet_plan.py``), so both report alike.
+
+``register_batch(..., force_vmapped=True)`` runs B pairs as one batched
+program (the JAX package's vmapped ``register_pair_device``): one FCGF
+forward over the 2B clouds, one batched 1-NN launch, one 6D forward over
+the B pairs' correspondences, the refinement and ICP over all pairs with
+per-pair freezing; pairs whose gate or candidate lists fail rerun through
+``register()``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.nn.utils.rnn import pad_sequence
 
 from ..models import resunet
 from ..models.unet_plan import build_unet_plan
@@ -106,6 +115,10 @@ class DeepGlobalRegistration:
                              f"{self.icp_candidates!r}")
         self.feat_timer = Timer()
         self.stage_timers: Dict[str, Timer] = {s: Timer() for s in STAGES}
+        # The batched program's stages, one tic/toc a sub-batch (its pairs'
+        # reruns count in stage_timers, through register()).
+        self.batch_stage_timers: Dict[str, Timer] = {s: Timer() for s in STAGES}
+        self.last_batch: Dict[str, list] = {}
         self.overflow_count = 0
         self.cand_fallbacks = 0  # pairs whose candidate ICP fell back to the scan
         self.last_iterations: Dict[str, object] = {}
@@ -175,10 +188,10 @@ class DeepGlobalRegistration:
         # A copy: the caller's array may be read-only.
         return torch.as_tensor(np.array(pcd, np.float32), device=self.device)
 
-    def _stage(self, name: str, start: bool):
+    def _stage(self, name: str, start: bool, timers=None):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        t = self.stage_timers[name]
+        t = (timers or self.stage_timers)[name]
         t.tic() if start else t.toc()
 
     def _fcgf_forward(self, grid: torch.Tensor, batch_size: int, cap: int):
@@ -193,11 +206,12 @@ class DeepGlobalRegistration:
                           device=self.device)
         return self.fcgf(plan, ones).float(), plan.overflow
 
-    def _inlier_logits(self, c6: torch.Tensor, ifeat: torch.Tensor, cap: int):
+    def _inlier_logits(self, c6: torch.Tensor, ifeat: torch.Tensor, cap: int,
+                       batch_size: int = 1):
         """6D inlier net on a grid [M, 7]; returns (logits [M, 1] f32, the JAX
         package's overflow count for the 6D plan)."""
         cfg = self.inlier_cfg
-        plan = build_unet_plan(c6, 1, cfg.conv1_kernel_size, cfg.region_type,
+        plan = build_unet_plan(c6, batch_size, cfg.conv1_kernel_size, cfg.region_type,
                                cfg.levels, capacity=cap,
                                level_shrink=self.level_shrink_6d,
                                dense_extent=self.dense_extent)
@@ -222,11 +236,12 @@ class DeepGlobalRegistration:
         self.feat_timer.toc()
         return sel0, sel1, g0, g1, feats[:n0], feats[n0:], overflow
 
-    def inlier_weights(self, sel0, sel1, g0, g1, f0, f1, idx1):
-        """6D inlier net on the correspondences (row i <-> idx1[i]); returns
-        (clipped sigmoid weights [N0], overflow count of the 6D plan)."""
+    def _inlier_inputs(self, sel0, sel1, g0, g1, f0, f1, idx1, column: int = 0):
+        """The 6D grid rows [N0, 7] (batch column ``column``) and the net's
+        input features of one pair's correspondences (row i <-> idx1[i])."""
         n0 = g0.shape[0]
-        c6 = torch.cat([torch.zeros_like(g0[:, :1]), g0[:, 1:], g1[idx1, 1:]], dim=1)
+        c6 = torch.cat([torch.full_like(g0[:, :1], column), g0[:, 1:], g1[idx1, 1:]],
+                       dim=1)
         if self.inlier_feature_type == "ones":
             ifeat = torch.ones((n0, 1), device=self.device)
         elif self.inlier_feature_type == "feats":
@@ -235,11 +250,21 @@ class DeepGlobalRegistration:
             ifeat = torch.cat([torch.cos(sel0), torch.cos(sel1[idx1])], dim=1)
         else:
             raise TypeError(f"undefined inlier feature type {self.inlier_feature_type}")
-        logits, overflow = self._inlier_logits(c6, ifeat, self._cap)
+        return c6, ifeat
+
+    def _weights(self, logits: torch.Tensor) -> torch.Tensor:
+        """Sigmoid of the inlier logits [M, 1], clipped at clip_weight_thresh."""
         w = torch.sigmoid(logits[:, 0])
         if self.clip_weight_thresh > 0:
             w = torch.where(w < self.clip_weight_thresh, torch.zeros_like(w), w)
-        return w, overflow
+        return w
+
+    def inlier_weights(self, sel0, sel1, g0, g1, f0, f1, idx1):
+        """6D inlier net on the correspondences (row i <-> idx1[i]); returns
+        (clipped sigmoid weights [N0], overflow count of the 6D plan)."""
+        c6, ifeat = self._inlier_inputs(sel0, sel1, g0, g1, f0, f1, idx1)
+        logits, overflow = self._inlier_logits(c6, ifeat, self._cap)
+        return self._weights(logits), overflow
 
     def use_cand_for(self, cap: int) -> bool:
         """Whether ICP takes candidate lists at voxel bucket ``cap``."""
@@ -322,6 +347,139 @@ class DeepGlobalRegistration:
     def register_many(self, xyz0_list, xyz1_list) -> np.ndarray:
         """Sequential ``register`` over pairs; returns [B, 4, 4]."""
         return np.stack([self.register(a, b) for a, b in zip(xyz0_list, xyz1_list)])
+
+    # Pairs in one batched program. The JAX package set 4 for TPU v5e memory
+    # (its 6D plans at the 16384 bucket); kept for parity until the card's
+    # own peak memory per sub-batch sets it.
+    _MAX_SUB_BATCH = 4
+
+    def register_batch(self, xyz0_list, xyz1_list, mesh=None,
+                       force_vmapped: bool = False) -> np.ndarray:
+        """Register many pairs; returns [B, 4, 4] float64.
+
+        Without ``force_vmapped`` this is ``register_many`` (the JAX package's
+        single-chip route). ``force_vmapped=True`` (the JAX package's keyword;
+        here it means the batched program, there is no ``vmap``) runs the
+        pairs in sub-batches of ``_MAX_SUB_BATCH``, in order, each as one
+        batched program that gives every pair the answer it would get alone
+        up to rounding. ``last_batch`` then holds, per pair, ``gate`` (the
+        weighted-sum gate bit), ``cand_ok``, ``rerun`` and the iterations
+        (``refine``, ``icp``), and per sub-batch ``icp_mode`` and ``cap``
+        (its voxel bucket). ``mesh`` (fan-out over devices) needs
+        ``parallel/``, which is not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError("register_batch(mesh=...) fans pairs out "
+                                      "over devices through parallel/, which "
+                                      "is not ported yet")
+        if not force_vmapped:
+            return self.register_many(xyz0_list, xyz1_list)
+        clouds0, clouds1 = list(xyz0_list), list(xyz1_list)
+        if len(clouds0) != len(clouds1):
+            raise ValueError(f"{len(clouds0)} source clouds for {len(clouds1)} targets")
+        self.last_batch = {k: [] for k in ("gate", "cand_ok", "rerun", "refine",
+                                           "icp", "icp_mode", "cap")}
+        out = np.zeros((len(clouds0), 4, 4))
+        m = self._MAX_SUB_BATCH
+        for s in range(0, len(clouds0), m):
+            out[s:s + m] = self._register_sub_batch(clouds0[s:s + m], clouds1[s:s + m])
+        return out
+
+    @torch.no_grad()
+    def _register_sub_batch(self, clouds0, clouds1) -> np.ndarray:
+        """One batched program over B <= _MAX_SUB_BATCH pairs (the JAX
+        package's ``register_pair_device`` under ``vmap``), then the rerun of
+        every pair whose gate bit or ``cand_ok`` is false through
+        ``register()``, one after another in pair order, so the seeded RANSAC
+        draws in a fixed order. Adds nothing to ``overflow_count``."""
+        b = len(clouds0)
+        timers = self.batch_stage_timers
+        xyz0 = [self._as_tensor(x) for x in clouds0]
+        xyz1 = [self._as_tensor(x) for x in clouds1]
+
+        self._stage("voxelize", True, timers)
+        sel0, sel1, g0, g1 = [], [], [], []
+        for p in range(b):  # batch column 2p: cloud 0 of pair p, 2p + 1: cloud 1
+            for xyz, sel, g, col in ((xyz0[p], sel0, g0, 2 * p),
+                                     (xyz1[p], sel1, g1, 2 * p + 1)):
+                s, grid = sparse_grid.voxelize(xyz, self.voxel_size, col)
+                sel.append(s)
+                g.append(grid)
+        self._stage("voxelize", False, timers)
+        n0 = [g.shape[0] for g in g0]
+        n1 = [g.shape[0] for g in g1]
+        cap = _bucket_for(max(n0 + n1), self.buckets)  # the ICP rule keys on it
+
+        self._stage("fcgf", True, timers)
+        clouds = [g for pair in zip(g0, g1) for g in pair]
+        feats, _ = self._fcgf_forward(torch.cat(clouds), 2 * b, cap)
+        feats = feats.split([g.shape[0] for g in clouds])
+        f0, f1 = feats[0::2], feats[1::2]
+        self._stage("fcgf", False, timers)
+
+        self._stage("match", True, timers)
+        idx = knn.find_nn_batched(pad_sequence(f0, batch_first=True),
+                                  pad_sequence(f1, batch_first=True), n0, n1)[0]
+        idx1 = [idx[p, :n0[p]].long() for p in range(b)]
+        self._stage("match", False, timers)
+
+        self._stage("inlier", True, timers)
+        rows = [self._inlier_inputs(sel0[p], sel1[p], g0[p], g1[p], f0[p], f1[p],
+                                    idx1[p], column=p) for p in range(b)]
+        logits, _ = self._inlier_logits(torch.cat([r[0] for r in rows]),
+                                        torch.cat([r[1] for r in rows]), cap,
+                                        batch_size=b)
+        w = self._weights(logits).split(n0)
+        wsum = torch.stack([torch.sum(wp) for wp in w]).tolist()
+        gate = [wsum[p] >= max(200.0, 0.05 * n0[p]) for p in range(b)]
+        self._stage("inlier", False, timers)
+
+        # The JAX package refines every pair and then discards the answer of
+        # a gate-failing one; here such pairs are left out of the refinement
+        # and ICP, because the rerun replaces their answer anyway.
+        ok = [p for p in range(b) if gate[p]]
+        T = torch.zeros((0, 4, 4), device=self.device)
+        refine, icp_iters = [0] * b, [0] * b
+        cand_ok = [True] * b
+        mode = "candidates" if self.use_cand_for(cap) else "full"
+        if ok:
+            self._stage("solve", True, timers)
+            res = registration.global_registration(
+                pad_sequence([sel0[p] for p in ok], batch_first=True),
+                pad_sequence([sel1[p][idx1[p]] for p in ok], batch_first=True),
+                pad_sequence([w[p] for p in ok], batch_first=True),
+                break_threshold_ratio=1e-4, quantization_size=2 * self.voxel_size)
+            T = se3.rt_to_matrix(res.R, res.t)
+            for k, p in enumerate(ok):
+                refine[p] = res.iterations[k]
+            self._stage("solve", False, timers)
+            if self.use_icp:
+                self._stage("icp", True, timers)
+                # No checked wrapper: pairs whose lists go stale are rerun.
+                ires = icp_ops.registration_icp(
+                    pad_sequence([sel0[p] for p in ok], batch_first=True),
+                    pad_sequence([sel1[p] for p in ok], batch_first=True),
+                    2 * self.voxel_size, init=T, use_candidates=mode == "candidates",
+                    num0=[n0[p] for p in ok], num1=[n1[p] for p in ok])
+                T = ires.T
+                for k, p in enumerate(ok):
+                    icp_iters[p], cand_ok[p] = ires.iterations[k], ires.cand_ok[k]
+                self._stage("icp", False, timers)
+        out = np.zeros((b, 4, 4))
+        out[ok] = T.double().cpu().numpy()
+        rerun = [not (gate[p] and cand_ok[p]) for p in range(b)]
+        lb = self.last_batch
+        for key, vals in (("gate", gate), ("cand_ok", cand_ok), ("rerun", rerun),
+                          ("refine", refine), ("icp", icp_iters)):
+            lb[key].extend(vals)
+        lb["icp_mode"].append(mode if self.use_icp else "off")
+        lb["cap"].append(cap)
+        for p in range(b):
+            if rerun[p]:
+                log.info("register_batch: pair %d failed the weighted-sum gate "
+                         "or its ICP candidate lists went stale; rerunning it "
+                         "through register()", p)
+                out[p] = self.register(clouds0[p], clouds1[p])
+        return out
 
     # ------------------------------------------------------------------
     # Staged API (the reference's deep_global_registration.py:134-236):

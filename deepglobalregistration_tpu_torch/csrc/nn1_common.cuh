@@ -7,6 +7,15 @@
 // self-matches can round below 0), the low word the candidate index, so the
 // minimum key is the smallest d2 and, among equal d2, the lowest index. min
 // is commutative, so the result does not depend on the blocks' order.
+//
+// Both also take a batch of pairs in one launch sequence (the counterpart
+// of the TPU kernel under vmap, which prepends a grid axis): pair b's rows
+// start at b * n0 (queries) and b * n1 (candidates), the grid's z axis runs
+// over the pairs, and each pair's counts come from an int32 array on the
+// device. Queries and candidates keep pair-local indices, so every (query,
+// candidate) lands in the same thread, fragment slot and order of
+// arithmetic as in a launch of that pair alone: a batched launch returns
+// each pair's unbatched result bit for bit.
 
 #pragma once
 
@@ -17,6 +26,22 @@
 namespace nn1 {
 
 constexpr unsigned long long kNoKey = ~0ull;  // no candidate yet
+
+// Pair b's query and candidate counts: nums[2b] and nums[2b + 1] (clamped
+// to the n0 / n1 rows each pair holds) for a batched launch, else the
+// scalars of a one-pair launch.
+struct Counts {
+  const int* nums;  // [batch, 2] on the device, or null
+  int num0, num1;   // the counts when nums is null
+  int n0, n1;       // rows a pair holds
+
+  __device__ __forceinline__ int q(int b) const {
+    return nums ? min(max(nums[2 * b], 0), n0) : num0;
+  }
+  __device__ __forceinline__ int c(int b) const {
+    return nums ? min(max(nums[2 * b + 1], 0), n1) : num1;
+  }
+};
 
 __device__ __forceinline__ unsigned long long make_key(float d, int idx) {
   uint32_t u = __float_as_uint(d);
@@ -30,16 +55,18 @@ __device__ __forceinline__ float key_d(unsigned long long key) {
   return __uint_as_float((m & 0x80000000u) ? (m & 0x7fffffffu) : ~m);
 }
 
-// Rows >= num0 and rows that no block reached return (0, +inf).
+// Rows >= num0 and rows that no block reached return (0, +inf). Grid:
+// (row blocks, pairs).
 __global__ void decode_kernel(const unsigned long long* __restrict__ keys,
-                              int n0, int num0, int* __restrict__ idx,
+                              Counts cnt, int* __restrict__ idx,
                               float* __restrict__ d) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n0) return;
-  const unsigned long long k = keys[i];
-  const bool found = i < num0 && k != kNoKey;
-  idx[i] = found ? static_cast<int>(k & 0xffffffffu) : 0;
-  d[i] = found ? key_d(k) : CUDART_INF_F;
+  if (i >= cnt.n0) return;
+  const size_t r = static_cast<size_t>(blockIdx.y) * cnt.n0 + i;
+  const unsigned long long k = keys[r];
+  const bool found = i < cnt.q(blockIdx.y) && k != kNoKey;
+  idx[r] = found ? static_cast<int>(k & 0xffffffffu) : 0;
+  d[r] = found ? key_d(k) : CUDART_INF_F;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

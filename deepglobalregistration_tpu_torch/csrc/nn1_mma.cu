@@ -37,7 +37,10 @@
 //    a running (min, argmin) for its two rows over its own columns, in
 //    ascending order with a strict '<'; the 4 lanes of a quad that share a
 //    row merge with __shfl_xor_sync by (d2, index), and the candidate
-//    splits of the grid meet through the key of nn1_common.cuh.
+//    splits of the grid meet through the key of nn1_common.cuh;
+//  - a batch of pairs (register_batch's feature match) runs as one launch
+//    sequence with the grid's z axis over the pairs, bit for bit each
+//    pair's own launch (see nn1_common.cuh).
 //
 // Interface: plain C, loaded with ctypes. The caller allocates the
 // workspace (dgr_nn1_mma_workspace bytes). Returns cudaGetLastError().
@@ -80,13 +83,20 @@ __device__ __forceinline__ void take(float d, int j, float& best, int& bi) {
 // Item i of the fragments: lane L = i % 32 (g = L / 4, t = L % 4), k-step
 // ks = (i / 32) % KS, sub-tile s = i / (32 KS); it holds candidate s*8 + g
 // at channels ks*8 + t and ks*8 + t + 4 (B[k][n] of the m16n8k8 fragment).
+// Grid: (item blocks, pairs).
 template <int KS>
-__global__ void pack_kernel(const float* __restrict__ f1, int c, int num1,
-                            int n1p, float4* __restrict__ frags,
-                            float* __restrict__ norms, int n0,
+__global__ void pack_kernel(const float* __restrict__ f1, int c,
+                            nn1::Counts cnt, int n1p,
+                            float4* __restrict__ frags,
+                            float* __restrict__ norms,
                             unsigned long long* __restrict__ keys) {
+  const int pair = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n0) keys[i] = nn1::kNoKey;
+  if (i < cnt.n0) keys[static_cast<size_t>(pair) * cnt.n0 + i] = nn1::kNoKey;
+  const int num1 = cnt.c(pair);
+  f1 += static_cast<size_t>(pair) * cnt.n1 * c;
+  frags += static_cast<size_t>(pair) * (n1p / 8) * KS * 32;
+  norms += static_cast<size_t>(pair) * n1p;
   if (i < n1p) {
     float nrm = CUDART_INF_F;  // rows past num1 never win
     if (i < num1) {
@@ -113,7 +123,7 @@ __global__ void pack_kernel(const float* __restrict__ f1, int c, int num1,
 
 template <int KS>
 __global__ void __launch_bounds__(kThreads, 2)
-mma_kernel(const float* __restrict__ f0, int c, int num0,
+mma_kernel(const float* __restrict__ f0, int c, nn1::Counts cnt,
            const float4* __restrict__ frags, const float* __restrict__ norms,
            int n_tiles, int chunk, unsigned long long* __restrict__ keys) {
   constexpr int MT = m_tiles<KS>();
@@ -125,6 +135,19 @@ mma_kernel(const float* __restrict__ f0, int c, int num0,
   // the 2^-20 tolerance on exact duplicates), so short chains bound it.
   constexpr int kChains = (KS + 3) / 4;
   extern __shared__ float4 ring[];  // kStages x (fragments, norms)
+
+  // Pair z's query tile and candidate chunk; a block past its pair's num0
+  // or num1 has nothing to do (the whole block leaves together).
+  const int pair = blockIdx.z;
+  const int num0 = cnt.q(pair);
+  const int t0 = blockIdx.y * chunk;
+  const int t1 = min(t0 + chunk, (cnt.c(pair) + kTileN - 1) / kTileN);
+  if (static_cast<int>(blockIdx.x) * kWarps * 16 * MT >= num0 || t0 >= t1)
+    return;
+  f0 += static_cast<size_t>(pair) * cnt.n0 * c;
+  frags += static_cast<size_t>(pair) * n_tiles * kFragF4;
+  norms += static_cast<size_t>(pair) * n_tiles * kTileN;
+  keys += static_cast<size_t>(pair) * cnt.n0;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -160,8 +183,6 @@ mma_kernel(const float* __restrict__ f0, int c, int num0,
     }
   }
 
-  const int t0 = blockIdx.y * chunk;
-  const int t1 = min(t0 + chunk, n_tiles);
   auto load = [&](int tile) {
     float4* dst = ring + ((tile - t0) % kStages) * kStageF4;
     const float4* src = frags + static_cast<size_t>(tile) * kFragF4;
@@ -249,30 +270,33 @@ struct Layout {
   size_t keys_bytes, frag_bytes, norm_bytes;
 };
 
-Layout layout(int n0, int c, int num1) {
+// rows1: candidate rows packed a pair (num1 for one pair, n1 for a batch).
+Layout layout(int batch, int n0, int c, int rows1) {
   Layout l;
   const int ks = (c + 7) / 8;
-  l.n_tiles = (num1 + kTileN - 1) / kTileN;
-  l.keys_bytes = nn1::align256(static_cast<size_t>(n0) * 8);
-  l.frag_bytes = nn1::align256(static_cast<size_t>(l.n_tiles) * kSub * ks * 32 * 16);
-  l.norm_bytes = static_cast<size_t>(l.n_tiles) * kTileN * 4;
+  l.n_tiles = (rows1 + kTileN - 1) / kTileN;
+  l.keys_bytes = nn1::align256(static_cast<size_t>(batch) * n0 * 8);
+  l.frag_bytes = nn1::align256(static_cast<size_t>(batch) * l.n_tiles * kSub *
+                               ks * 32 * 16);
+  l.norm_bytes = static_cast<size_t>(batch) * l.n_tiles * kTileN * 4;
   return l;
 }
 
 template <int KS>
-int launch(const float* f0, const float* f1, int n0, int c, int num0,
-           int num1, char* ws, int* idx, float* d, cudaStream_t stream) {
+int launch(const float* f0, const float* f1, int batch, int c, nn1::Counts cnt,
+           int rows0, int rows1, char* ws, int* idx, float* d,
+           cudaStream_t stream) {
   constexpr int kSmem = kStages * (kSub * KS * 32 + kTileN / 4) * 16;
   constexpr int kQueriesPerBlock = kWarps * 16 * m_tiles<KS>();
-  const Layout l = layout(n0, c, num1);
+  const Layout l = layout(batch, cnt.n0, c, rows1);
   auto* keys = reinterpret_cast<unsigned long long*>(ws);
   auto* frags = reinterpret_cast<float4*>(ws + l.keys_bytes);
   auto* norms = reinterpret_cast<float*>(ws + l.keys_bytes + l.frag_bytes);
   const int n1p = l.n_tiles * kTileN;
-  const int pack_n = max(n0, n1p / 8 * KS * 32);
-  pack_kernel<KS><<<(pack_n + 255) / 256, 256, 0, stream>>>(
-      f1, c, num1, n1p, frags, norms, n0, keys);
-  if (num0 > 0 && l.n_tiles > 0) {
+  const int pack_n = max(cnt.n0, n1p / 8 * KS * 32);
+  pack_kernel<KS><<<dim3((pack_n + 255) / 256, batch), 256, 0, stream>>>(
+      f1, c, cnt, n1p, frags, norms, keys);
+  if (rows0 > 0 && l.n_tiles > 0) {
     static int resident = 0;  // blocks resident on the card (one device)
     if (resident == 0) {
       cudaFuncSetAttribute(mma_kernel<KS>,
@@ -282,42 +306,48 @@ int launch(const float* f0, const float* f1, int n0, int c, int num0,
                                                     kThreads, kSmem);
       resident = max(1, per_sm) * nn1::sm_count();
     }
-    const int q_tiles = (num0 + kQueriesPerBlock - 1) / kQueriesPerBlock;
-    const int chunk = nn1::choose_chunk(q_tiles, l.n_tiles, resident, 2);
-    const dim3 grid(q_tiles, (l.n_tiles + chunk - 1) / chunk);
+    const int q_tiles = (rows0 + kQueriesPerBlock - 1) / kQueriesPerBlock;
+    const int chunk = nn1::choose_chunk(q_tiles * batch, l.n_tiles, resident, 2);
+    const dim3 grid(q_tiles, (l.n_tiles + chunk - 1) / chunk, batch);
     mma_kernel<KS><<<grid, kThreads, kSmem, stream>>>(
-        f0, c, num0, frags, norms, l.n_tiles, chunk, keys);
+        f0, c, cnt, frags, norms, l.n_tiles, chunk, keys);
   }
-  nn1::decode_kernel<<<(n0 + 255) / 256, 256, 0, stream>>>(keys, n0, num0,
-                                                          idx, d);
+  nn1::decode_kernel<<<dim3((cnt.n0 + 255) / 256, batch), 256, 0, stream>>>(
+      keys, cnt, idx, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" long long dgr_nn1_mma_workspace(int n0, int c, int num1) {
-  const Layout l = layout(n0, c, num1);
+// rows1 is the candidates packed a pair: num1 for one pair (nums null),
+// all n1 rows for a batch (each pair's own count is read on the device).
+extern "C" long long dgr_nn1_mma_workspace(int batch, int n0, int c,
+                                           int rows1) {
+  const Layout l = layout(batch, n0, c, rows1);
   return static_cast<long long>(l.keys_bytes + l.frag_bytes + l.norm_bytes);
 }
 
-extern "C" int dgr_nn1_mma(const void* f0, const void* f1, int n0, int c,
-                           int num0, int num1, void* ws, void* idx, void* d,
-                           void* stream) {
+// f0 [batch, n0, c], f1 [batch, n1, c]; idx, d [batch, n0]. nums: null for
+// one pair (batch 1, counts num0 / num1), else [batch, 2] int32 on the
+// device.
+extern "C" int dgr_nn1_mma(const void* f0, const void* f1, int batch, int n0,
+                           int n1, int c, int num0, int num1, const void* nums,
+                           void* ws, void* idx, void* d, void* stream) {
   const float* a = static_cast<const float*>(f0);
   const float* b = static_cast<const float*>(f1);
+  const nn1::Counts cnt{static_cast<const int*>(nums), num0, num1, n0, n1};
+  const int rows0 = nums ? n0 : num0, rows1 = nums ? n1 : num1;
   char* w = static_cast<char*>(ws);
   int* oi = static_cast<int*>(idx);
   float* od = static_cast<float*>(d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n0 <= 0) return 0;
+  if (batch <= 0 || n0 <= 0) return 0;
   switch ((c + 7) / 8) {
-    case 2: return launch<2>(a, b, n0, c, num0, num1, w, oi, od, s);
-    case 3: return launch<3>(a, b, n0, c, num0, num1, w, oi, od, s);
-    case 4: return launch<4>(a, b, n0, c, num0, num1, w, oi, od, s);
-    case 5: return launch<5>(a, b, n0, c, num0, num1, w, oi, od, s);
-    case 6: return launch<6>(a, b, n0, c, num0, num1, w, oi, od, s);
-    case 7: return launch<7>(a, b, n0, c, num0, num1, w, oi, od, s);
-    case 8: return launch<8>(a, b, n0, c, num0, num1, w, oi, od, s);
+#define DGR_CASE(KS) \
+    case KS: return launch<KS>(a, b, batch, c, cnt, rows0, rows1, w, oi, od, s);
+    DGR_CASE(2) DGR_CASE(3) DGR_CASE(4) DGR_CASE(5)
+    DGR_CASE(6) DGR_CASE(7) DGR_CASE(8)
+#undef DGR_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

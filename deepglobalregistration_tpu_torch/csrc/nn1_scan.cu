@@ -24,10 +24,13 @@
 //  - candidate tiles stream into a kStages ring in shared memory with
 //    16-byte cp.async copies (coalesced), the next tiles' loads in flight
 //    while a tile is scanned, one __syncthreads a tile;
-//  - the grid is (query tiles) x (candidate splits), sized to fill the
-//    SMs; each thread visits its candidates in ascending order with a
-//    strict '<' and the splits meet through the (d2, index) key of
-//    nn1_common.cuh, so the lowest index wins every tie.
+//  - the grid is (query tiles) x (candidate splits) x (pairs), sized to
+//    fill the SMs; each thread visits its candidates in ascending order
+//    with a strict '<' and the splits meet through the (d2, index) key of
+//    nn1_common.cuh, so the lowest index wins every tie;
+//  - a batch of pairs (register_batch's ICP scan, one launch a step) runs
+//    as one launch sequence, bit for bit each pair's own launch (see
+//    nn1_common.cuh).
 //
 // Interface: plain C, loaded with ctypes. The caller allocates the
 // workspace (dgr_nn1_scan_workspace bytes). Returns cudaGetLastError().
@@ -44,15 +47,20 @@ constexpr int kQueriesPerBlock = kThreads * kQ;
 template <int C>  // float4s a packed row
 __host__ __device__ constexpr int slots() { return (C + 4) / 4; }
 
-// Packs candidate rows 0 .. n1p-1 and sets every query's key to kNoKey.
+// Packs candidate rows 0 .. n1p-1 of every pair and sets every query's key
+// to kNoKey. Grid: (row blocks, pairs).
 template <int C>
-__global__ void pack_kernel(const float* __restrict__ f1, int num1, int n1p,
-                            float4* __restrict__ packed, int n0,
+__global__ void pack_kernel(const float* __restrict__ f1, nn1::Counts cnt,
+                            int n1p, float4* __restrict__ packed,
                             unsigned long long* __restrict__ keys) {
   constexpr int NS = slots<C>();
+  const int b = blockIdx.y;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < n0) keys[j] = nn1::kNoKey;
+  if (j < cnt.n0) keys[static_cast<size_t>(b) * cnt.n0 + j] = nn1::kNoKey;
   if (j >= n1p) return;
+  const int num1 = cnt.c(b);
+  f1 += static_cast<size_t>(b) * cnt.n1 * C;
+  packed += static_cast<size_t>(b) * n1p * NS;
   float v[NS * 4];
 #pragma unroll
   for (int k = 0; k < NS * 4; ++k) v[k] = 0.f;
@@ -74,11 +82,23 @@ __global__ void pack_kernel(const float* __restrict__ f1, int num1, int n1p,
 
 template <int C>
 __global__ void __launch_bounds__(kThreads, 4)
-scan_kernel(const float* __restrict__ f0, int num0,
+scan_kernel(const float* __restrict__ f0, nn1::Counts cnt,
             const float4* __restrict__ packed, int n_tiles, int chunk,
             unsigned long long* __restrict__ keys) {
   constexpr int NS = slots<C>();
   __shared__ float4 ring[kStages][kThreads * NS];
+
+  // Pair b's query tile and candidate chunk; a block past its pair's num0
+  // or num1 has nothing to do (the whole block leaves together).
+  const int pair = blockIdx.z;
+  const int num0 = cnt.q(pair);
+  const int t0 = blockIdx.y * chunk;
+  const int t1 = min(t0 + chunk, (cnt.c(pair) + kThreads - 1) / kThreads);
+  if (static_cast<int>(blockIdx.x) * kQueriesPerBlock >= num0 || t0 >= t1)
+    return;
+  f0 += static_cast<size_t>(pair) * cnt.n0 * C;
+  packed += static_cast<size_t>(pair) * n_tiles * kThreads * NS;
+  keys += static_cast<size_t>(pair) * cnt.n0;
 
   const int q0 = blockIdx.x * kQueriesPerBlock + threadIdx.x;
   float qv[kQ][C], qn[kQ], best[kQ];
@@ -96,8 +116,6 @@ scan_kernel(const float* __restrict__ f0, int num0,
     bi[i] = 0;
   }
 
-  const int t0 = blockIdx.y * chunk;
-  const int t1 = min(t0 + chunk, n_tiles);
   auto load = [&](int t) {
     const float4* src = packed + static_cast<size_t>(t) * kThreads * NS;
     float4* dst = ring[(t - t0) % kStages];
@@ -158,25 +176,28 @@ struct Layout {
   size_t keys_bytes, packed_bytes;
 };
 
-Layout layout(int n0, int c, int num1) {
+// rows1: candidate rows packed a pair (num1 for one pair, n1 for a batch).
+Layout layout(int batch, int n0, int c, int rows1) {
   Layout l;
-  l.n_tiles = (num1 + kThreads - 1) / kThreads;
-  l.keys_bytes = nn1::align256(static_cast<size_t>(n0) * 8);
-  l.packed_bytes = static_cast<size_t>(l.n_tiles) * kThreads * ((c + 4) / 4) * 16;
+  l.n_tiles = (rows1 + kThreads - 1) / kThreads;
+  l.keys_bytes = nn1::align256(static_cast<size_t>(batch) * n0 * 8);
+  l.packed_bytes = static_cast<size_t>(batch) * l.n_tiles * kThreads *
+                   ((c + 4) / 4) * 16;
   return l;
 }
 
 template <int C>
-int launch(const float* f0, const float* f1, int n0, int num0, int num1,
-           char* ws, int* idx, float* d, cudaStream_t stream) {
-  const Layout l = layout(n0, C, num1);
+int launch(const float* f0, const float* f1, int batch, nn1::Counts cnt,
+           int rows0, int rows1, char* ws, int* idx, float* d,
+           cudaStream_t stream) {
+  const Layout l = layout(batch, cnt.n0, C, rows1);
   auto* keys = reinterpret_cast<unsigned long long*>(ws);
   auto* packed = reinterpret_cast<float4*>(ws + l.keys_bytes);
   const int n1p = l.n_tiles * kThreads;
-  const int pack_n = max(n0, n1p);
-  pack_kernel<C><<<(pack_n + 255) / 256, 256, 0, stream>>>(f1, num1, n1p,
-                                                           packed, n0, keys);
-  if (num0 > 0 && l.n_tiles > 0) {
+  const int pack_n = max(cnt.n0, n1p);
+  pack_kernel<C><<<dim3((pack_n + 255) / 256, batch), 256, 0, stream>>>(
+      f1, cnt, n1p, packed, keys);
+  if (rows0 > 0 && l.n_tiles > 0) {
     static int resident = 0;  // blocks resident on the card (one device)
     if (resident == 0) {
       int per_sm = 0;
@@ -184,43 +205,48 @@ int launch(const float* f0, const float* f1, int n0, int num0, int num1,
                                                     kThreads, 0);
       resident = max(1, per_sm) * nn1::sm_count();
     }
-    const int q_tiles = (num0 + kQueriesPerBlock - 1) / kQueriesPerBlock;
-    const int chunk = nn1::choose_chunk(q_tiles, l.n_tiles, resident, 1);
-    const dim3 grid(q_tiles, (l.n_tiles + chunk - 1) / chunk);
-    scan_kernel<C><<<grid, kThreads, 0, stream>>>(f0, num0, packed, l.n_tiles,
+    const int q_tiles = (rows0 + kQueriesPerBlock - 1) / kQueriesPerBlock;
+    const int chunk = nn1::choose_chunk(q_tiles * batch, l.n_tiles, resident, 1);
+    const dim3 grid(q_tiles, (l.n_tiles + chunk - 1) / chunk, batch);
+    scan_kernel<C><<<grid, kThreads, 0, stream>>>(f0, cnt, packed, l.n_tiles,
                                                  chunk, keys);
   }
-  nn1::decode_kernel<<<(n0 + 255) / 256, 256, 0, stream>>>(keys, n0, num0,
-                                                          idx, d);
+  nn1::decode_kernel<<<dim3((cnt.n0 + 255) / 256, batch), 256, 0, stream>>>(
+      keys, cnt, idx, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" long long dgr_nn1_scan_workspace(int n0, int c, int num1) {
-  const Layout l = layout(n0, c, num1);
+// rows1 is the candidates packed a pair: num1 for one pair (nums null),
+// all n1 rows for a batch (each pair's own count is read on the device).
+extern "C" long long dgr_nn1_scan_workspace(int batch, int n0, int c,
+                                            int rows1) {
+  const Layout l = layout(batch, n0, c, rows1);
   return static_cast<long long>(l.keys_bytes + l.packed_bytes);
 }
 
-extern "C" int dgr_nn1_scan(const void* f0, const void* f1, int n0, int c,
-                            int num0, int num1, void* ws, void* idx, void* d,
-                            void* stream) {
+// f0 [batch, n0, c], f1 [batch, n1, c]; idx, d [batch, n0]. nums: null for
+// one pair (batch 1, counts num0 / num1), else [batch, 2] int32 on the
+// device.
+extern "C" int dgr_nn1_scan(const void* f0, const void* f1, int batch, int n0,
+                            int n1, int c, int num0, int num1, const void* nums,
+                            void* ws, void* idx, void* d, void* stream) {
   const float* a = static_cast<const float*>(f0);
   const float* b = static_cast<const float*>(f1);
+  const nn1::Counts cnt{static_cast<const int*>(nums), num0, num1, n0, n1};
+  const int rows0 = nums ? n0 : num0, rows1 = nums ? n1 : num1;
   char* w = static_cast<char*>(ws);
   int* oi = static_cast<int*>(idx);
   float* od = static_cast<float*>(d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n0 <= 0) return 0;
+  if (batch <= 0 || n0 <= 0) return 0;
   switch (c) {
-    case 1: return launch<1>(a, b, n0, num0, num1, w, oi, od, s);
-    case 2: return launch<2>(a, b, n0, num0, num1, w, oi, od, s);
-    case 3: return launch<3>(a, b, n0, num0, num1, w, oi, od, s);
-    case 4: return launch<4>(a, b, n0, num0, num1, w, oi, od, s);
-    case 5: return launch<5>(a, b, n0, num0, num1, w, oi, od, s);
-    case 6: return launch<6>(a, b, n0, num0, num1, w, oi, od, s);
-    case 7: return launch<7>(a, b, n0, num0, num1, w, oi, od, s);
-    case 8: return launch<8>(a, b, n0, num0, num1, w, oi, od, s);
+#define DGR_CASE(C) \
+    case C: return launch<C>(a, b, batch, cnt, rows0, rows1, w, oi, od, s);
+    DGR_CASE(1) DGR_CASE(2) DGR_CASE(3) DGR_CASE(4)
+    DGR_CASE(5) DGR_CASE(6) DGR_CASE(7) DGR_CASE(8)
+#undef DGR_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -24,11 +24,21 @@ Two neighbour searches:
   quarter cell of the init: past it the loop stops at once and ``cand_ok``
   is False, and ``registration_icp_checked`` reruns the full scan from the
   same init.
+
+A batch of B pairs ([B, N, 3] with per-pair row counts, as
+``register_batch`` gives it) runs as the JAX package's function does under
+``vmap``: one loop for all pairs, each pair frozen at its own done, stale or
+``max_iteration`` stop, the host checking whether any pair is still active
+once per iteration. The full scan is one batched ``knn.find_nn_batched``
+launch an iteration for the whole batch; candidate lists are built pair by
+pair once a call and stacked, absent slots at the sentinel. A batch has no
+checked wrapper (the JAX package never uses it under ``vmap``): ``cand_ok``
+comes back per pair for the caller to act on.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -38,11 +48,14 @@ _SENTINEL_XYZ = 1e6  # absent candidate slots: d2 ~ 1e12, never the argmin
 
 
 class ICPResult(NamedTuple):
+    """T [4, 4] and scalars; for a batch T [B, 4, 4] and lists of B values."""
+
     T: torch.Tensor
-    fitness: float
-    inlier_rmse: float
-    iterations: int
-    cand_ok: bool = True  # candidate lists stayed valid (always True for the scan)
+    fitness: Union[float, List[float]]
+    inlier_rmse: Union[float, List[float]]
+    iterations: Union[int, List[int]]
+    # Candidate lists stayed valid (always True for the scan).
+    cand_ok: Union[bool, List[bool]] = True
 
 
 def _cell_key(c: torch.Tensor) -> torch.Tensor:
@@ -95,32 +108,76 @@ def _build_candidates(moved0: torch.Tensor, target: torch.Tensor, cell: float,
     return cand_idx, cand_xyz, overflow
 
 
+def _build_candidates_batched(moved0: torch.Tensor, target: torch.Tensor,
+                              num0: Sequence[int], num1: Sequence[int],
+                              cell: float) -> Tuple[torch.Tensor, List[bool]]:
+    """Each pair's lists (``_build_candidates`` on its valid rows), stacked
+    to [B, N0, 27 * 8, 3] with absent slots and padding rows at the
+    sentinel; returns (cand_xyz, overflow per pair)."""
+    b, n0 = moved0.shape[:2]
+    cand_xyz = torch.full((b, n0, 27 * 8, 3), _SENTINEL_XYZ, device=moved0.device)
+    overflow = [False] * b
+    for p in range(b):
+        if num0[p] and num1[p]:
+            _, xyz, overflow[p] = _build_candidates(
+                moved0[p, :num0[p]], target[p, :num1[p]], cell)
+            cand_xyz[p, :num0[p]] = xyz
+    return cand_xyz, overflow
+
+
 def registration_icp(source: torch.Tensor, target: torch.Tensor,
                      max_correspondence_distance: float,
                      init: torch.Tensor | None = None, max_iteration: int = 30,
                      relative_fitness: float = 1e-6,
                      relative_rmse: float = 1e-6,
-                     use_candidates: bool = False) -> ICPResult:
-    """source [N0, 3], target [N1, 3] (valid rows only), init [4, 4] f32.
+                     use_candidates: bool = False,
+                     num0: Sequence[int] | None = None,
+                     num1: Sequence[int] | None = None) -> ICPResult:
+    """source [N0, 3], target [N1, 3] (valid rows only), init [4, 4] f32; or
+    a batch: source [B, N0, 3], target [B, N1, 3], the valid rows of each
+    pair ``num0`` / ``num1`` [B] (ints), init [B, 4, 4].
 
     ``use_candidates``: candidate-list search (see the module docstring),
     exact only from a near-converged init; check ``cand_ok``."""
+    batched = source.dim() == 3
     source = source.float().contiguous()
     target = target.float().contiguous()
-    n0 = source.shape[0]
-    T = torch.eye(4, device=source.device) if init is None else init.float()
+    dev = source.device
+    n0 = source.shape[-2]
+    if init is None:
+        init = torch.eye(4, device=dev).expand(source.shape[:-2] + (4, 4))
+    T = init.float()
     thresh2 = max_correspondence_distance ** 2
+    if batched:
+        num0, num1 = [int(n) for n in num0], [int(n) for n in num1]
+        valid0 = (torch.arange(n0, device=dev)
+                  < torch.tensor(num0, device=dev)[:, None])  # [B, N0]
+        # Padding rows find no candidate (d2 = +inf, or ~1e12 against the
+        # sentinel), so they are never inliers.
+        den = torch.tensor(num0, dtype=torch.float32, device=dev).clamp(min=1.0)
+    else:
+        den = max(n0, 1)
 
     if use_candidates:
         moved0 = se3.apply_transform(source, T)
-        cand_idx, cand_xyz, cand_overflow = _build_candidates(
-            moved0, target, cell=max_correspondence_distance)
+        if batched:
+            cand_xyz, cand_overflow = _build_candidates_batched(
+                moved0, target, num0, num1, cell=max_correspondence_distance)
+        else:
+            _, cand_xyz, cand_overflow = _build_candidates(
+                moved0, target, cell=max_correspondence_distance)
 
         def find(moved):
-            d2 = torch.sum((moved[:, None, :] - cand_xyz) ** 2, dim=-1)
-            jbest = torch.argmin(d2, dim=1, keepdim=True)  # first minimum
-            return (torch.gather(d2, 1, jbest)[:, 0],
-                    cand_xyz[torch.arange(n0, device=source.device), jbest[:, 0]])
+            d2 = torch.sum((moved[..., None, :] - cand_xyz) ** 2, dim=-1)
+            jbest = torch.argmin(d2, dim=-1, keepdim=True)  # first minimum
+            return (torch.gather(d2, -1, jbest)[..., 0],
+                    torch.take_along_dim(cand_xyz, jbest[..., None], dim=-2)[..., 0, :])
+    elif batched:
+        nums = (torch.tensor(num0, device=dev), torch.tensor(num1, device=dev))
+
+        def find(moved):
+            idx, d2 = knn.find_nn_batched(moved, target, *nums)
+            return d2, torch.take_along_dim(target, idx.long()[..., None], dim=-2)
     else:
         def find(moved):
             idx, d2 = knn.find_nn(moved, target)
@@ -130,35 +187,51 @@ def registration_icp(source: torch.Tensor, target: torch.Tensor,
         moved = se3.apply_transform(source, T)
         d2, nn_xyz = find(moved)
         inl = d2 < thresh2
-        cnt = torch.sum(inl.float())
-        fitness = cnt / max(n0, 1)
-        rmse = torch.sqrt(torch.sum(torch.where(inl, d2, torch.zeros_like(d2)))
+        cnt = torch.sum(inl.float(), dim=-1)
+        fitness = cnt / den
+        rmse = torch.sqrt(torch.sum(torch.where(inl, d2, torch.zeros_like(d2)), dim=-1)
                           / torch.clamp(cnt, min=1.0))
         return moved, inl, nn_xyz, fitness, rmse
 
+    def drift2(moved):
+        d = torch.sum((moved - moved0) ** 2, dim=-1)
+        if batched:  # padding rows do not move with the points
+            d = torch.where(valid0, d, torch.zeros_like(d))
+        return torch.max(d, dim=-1).values
+
     drift_bound2 = (0.25 * max_correspondence_distance) ** 2
-    moved, inl, nn_xyz, fit, rmse = evaluate(T)
-    i = 0
-    stale = False
-    while i < max_iteration:
+    state = evaluate(T)  # moved, inl, nn_xyz, fitness, rmse
+    i = torch.zeros(source.shape[:-2], dtype=torch.int32, device=dev)
+    done = torch.zeros_like(i, dtype=torch.bool)
+    stale = torch.zeros_like(done)
+    active = i < max_iteration
+    while bool(active.any()):
+        moved, inl, nn_xyz, fit, rmse = state
         R, t = procrustes.weighted_procrustes(moved, nn_xyz, inl.float())
-        T = torch.matmul(se3.rt_to_matrix(R, t), T)
-        moved, inl, nn_xyz, fit_new, rmse_new = evaluate(T)
-        i += 1
-        done = bool((torch.abs(fit_new - fit) < relative_fitness)
-                    & (torch.abs(rmse_new - rmse) < relative_rmse))
-        fit, rmse = fit_new, rmse_new
+        T_new = torch.matmul(se3.rt_to_matrix(R, t), T)
+        new = evaluate(T_new)
+        done_new = ((torch.abs(new[3] - fit) < relative_fitness)
+                    & (torch.abs(new[4] - rmse) < relative_rmse))
         if use_candidates:
             # Lists built at the init: past the quarter-cell bound their
             # answers are no longer trusted, so stop at once (the checked
-            # wrapper's full scan redoes the work).
-            drift2 = torch.max(torch.sum((moved - moved0) ** 2, dim=1))
-            stale = bool(drift2 > drift_bound2)
-        if done or stale:
-            break
-    cand_ok = not (cand_overflow or stale) if use_candidates else True
-    return ICPResult(T=T, fitness=float(fit), inlier_rmse=float(rmse),
-                     iterations=i, cand_ok=cand_ok)
+            # wrapper's full scan, or register_batch's rerun, redoes the work).
+            stale = stale | (active & (drift2(new[0]) > drift_bound2))
+        if batched:  # pairs already stopped keep their state
+            frz = lambda a, b: torch.where(active.reshape(active.shape + (1,) * (a.dim() - 1)), a, b)
+            T_new = frz(T_new, T)
+            new = tuple(frz(a, b) for a, b in zip(new, state))
+        T, state = T_new, new
+        i = i + active.int()
+        done = done | (active & done_new)
+        active = ~(done | stale) & (i < max_iteration)
+    fit, rmse = state[3], state[4]
+    if use_candidates:
+        cand_ok = (~stale & ~torch.tensor(cand_overflow, device=dev)).tolist()
+    else:
+        cand_ok = [True] * len(num0) if batched else True
+    return ICPResult(T=T, fitness=fit.tolist(), inlier_rmse=rmse.tolist(),
+                     iterations=i.tolist(), cand_ok=cand_ok)
 
 
 def registration_icp_checked(source: torch.Tensor, target: torch.Tensor,

@@ -15,6 +15,12 @@ the CUDA cores, bit for bit the plain version's arithmetic) or ``nn1_mma``
 tensor cores in 3xTF32, d2 within ``MMA_D2_RTOL`` of its exact value). CPU
 tensors take the plain PyTorch scan ``find_nn_plain``, which is also what
 ``chip_smoke.py`` holds the kernels against on the card.
+
+``find_nn_batched`` is the same search over B pairs [B, N, C] with per-pair
+counts (the TPU kernel under ``vmap``): on the card one launch sequence of
+the width's kernel for the whole batch (``nn1_scan_batched``,
+``nn1_mma_batched``), each pair's result bit for bit that of its own
+unbatched launch; on the CPU ``find_nn_plain`` pair by pair.
 """
 
 from __future__ import annotations
@@ -69,16 +75,31 @@ def find_nn_plain(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int,
             torch.where(valid, best_d, torch.full_like(best_d, float("inf"))))
 
 
-def _check(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int,
-           name: str, lo: int, hi: int) -> None:
-    if F0.dim() != 2 or F1.dim() != 2 or F0.shape[1] != F1.shape[1]:
-        raise ValueError(f"expected [N0, C] and [N1, C], got {tuple(F0.shape)} "
-                         f"and {tuple(F1.shape)}")
-    if not lo < F0.shape[1] <= hi:
-        raise ValueError(f"{name} takes {lo} < C <= {hi}, got C={F0.shape[1]}")
-    if not (0 <= num0 <= F0.shape[0] and 0 <= num1 <= F1.shape[0]):
-        raise ValueError(f"num0={num0} / num1={num1} outside the row counts "
-                         f"{F0.shape[0]} / {F1.shape[0]}")
+def find_nn_batched_plain(F0: torch.Tensor, F1: torch.Tensor, num0, num1
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``find_nn_plain`` pair by pair: F0 [B, N0, C], F1 [B, N1, C], counts
+    [B]; returns (idx [B, N0] int32, d2 [B, N0] f32)."""
+    n0s, n1s = _as_list(num0), _as_list(num1)
+    idx = torch.zeros(F0.shape[:2], dtype=torch.int32, device=F0.device)
+    d = torch.full(F0.shape[:2], float("inf"), device=F0.device)
+    for b in range(F0.shape[0]):
+        idx[b], d[b] = find_nn_plain(F0[b], F1[b], n0s[b], n1s[b])
+    return idx, d
+
+
+def _as_list(num) -> list:
+    return num.tolist() if torch.is_tensor(num) else [int(n) for n in num]
+
+
+def _check(F0: torch.Tensor, F1: torch.Tensor, name: str, lo: int, hi: int,
+           batched: bool = False) -> None:
+    rank, form = (3, "[B, N0, C] and [B, N1, C]") if batched else (2, "[N0, C] and [N1, C]")
+    if (F0.dim() != rank or F1.dim() != rank or F0.shape[-1] != F1.shape[-1]
+            or F0.shape[:-2] != F1.shape[:-2]):
+        raise ValueError(f"expected {form}, got {tuple(F0.shape)} and "
+                         f"{tuple(F1.shape)}")
+    if not lo < F0.shape[-1] <= hi:
+        raise ValueError(f"{name} takes {lo} < C <= {hi}, got C={F0.shape[-1]}")
     for t in (F0, F1):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous float32 tensors")
@@ -91,33 +112,36 @@ def _lib(name: str):
     launch = getattr(lib, f"dgr_{name}")
     workspace = getattr(lib, f"dgr_{name}_workspace")
     if launch.argtypes is None:
-        launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p]
+        launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] * 5)
         launch.restype = ctypes.c_int
-        workspace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        workspace.argtypes = [ctypes.c_int] * 4
         workspace.restype = ctypes.c_longlong
     return launch, workspace
 
 
 def _call(name: str, F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int,
-          idx: torch.Tensor, d: torch.Tensor) -> None:
+          nums: torch.Tensor | None, idx: torch.Tensor, d: torch.Tensor) -> None:
     """Launch ``csrc/<name>.cu`` on F0's device and current stream, with a
     workspace (the per-query merge keys and the packed candidates) from
-    ``torch.empty``; raise on a CUDA error."""
+    ``torch.empty``; raise on a CUDA error. F0 [B, N0, C], F1 [B, N1, C];
+    ``nums`` None: one pair (B = 1) with counts num0 / num1, else the
+    per-pair counts [B, 2] int32 on the device."""
     if not (F0.is_cuda and F1.is_cuda):
         raise ValueError("the 1-NN kernels take CUDA tensors")
-    if F0.device != F1.device:
-        raise ValueError("F0 and F1 lie on different devices")
+    if F0.device != F1.device or (nums is not None and nums.device != F0.device):
+        raise ValueError("the 1-NN kernel's tensors lie on different devices")
     launch, workspace = _lib(name)
-    n0, c = F0.shape
-    ws = torch.empty((int(workspace(n0, c, num1)),), dtype=torch.uint8,
+    b, n0, c = F0.shape
+    n1 = F1.shape[1]
+    rows1 = num1 if nums is None else n1  # candidates packed a pair
+    ws = torch.empty((int(workspace(b, n0, c, rows1)),), dtype=torch.uint8,
                      device=F0.device)
     with torch.cuda.device(F0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(F0.data_ptr(), F1.data_ptr(), n0, c, num0, num1,
-                     ws.data_ptr(), idx.data_ptr(), d.data_ptr(), stream)
+        err = launch(F0.data_ptr(), F1.data_ptr(), b, n0, n1, c, num0, num1,
+                     None if nums is None else nums.data_ptr(), ws.data_ptr(),
+                     idx.data_ptr(), d.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -125,13 +149,34 @@ def _call(name: str, F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int,
 def _run(name: str, lo: int, hi: int, F0: torch.Tensor, F1: torch.Tensor,
          num0: int, num1: int) -> Tuple[torch.Tensor, torch.Tensor, bool]:
     """Check, allocate the outputs, launch; the flag says whether it did."""
-    _check(F0, F1, num0, num1, name, lo, hi)
+    _check(F0, F1, name, lo, hi)
+    if not (0 <= num0 <= F0.shape[0] and 0 <= num1 <= F1.shape[0]):
+        raise ValueError(f"num0={num0} / num1={num1} outside the row counts "
+                         f"{F0.shape[0]} / {F1.shape[0]}")
     n0 = F0.shape[0]
     idx = torch.empty((n0,), dtype=torch.int32, device=F0.device)
     d = torch.empty((n0,), dtype=torch.float32, device=F0.device)
     if n0:
-        _call(name, F0, F1, int(num0), int(num1), idx, d)
+        _call(name, F0[None], F1[None], int(num0), int(num1), None, idx, d)
     return idx, d, n0 > 0
+
+
+def _run_batched(name: str, lo: int, hi: int, F0: torch.Tensor,
+                 F1: torch.Tensor, nums: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """``_run`` for a batch: F0 [B, N0, C], F1 [B, N1, C], nums [B, 2] int32
+    on the device (the kernel clamps each count to its pair's rows)."""
+    _check(F0, F1, name, lo, hi, batched=True)
+    b, n0 = F0.shape[:2]
+    if nums.shape != (b, 2) or nums.dtype != torch.int32 or not nums.is_contiguous():
+        raise ValueError(f"{name} takes counts [B, 2] int32, got "
+                         f"{tuple(nums.shape)} {nums.dtype}")
+    idx = torch.empty((b, n0), dtype=torch.int32, device=F0.device)
+    d = torch.empty((b, n0), dtype=torch.float32, device=F0.device)
+    launched = b > 0 and n0 > 0
+    if launched:
+        _call(name, F0, F1, 0, 0, nums, idx, d)
+    return idx, d, launched
 
 
 def nn1_scan(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int
@@ -153,6 +198,25 @@ def nn1_mma(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int
     return idx, d
 
 
+def nn1_scan_batched(F0: torch.Tensor, F1: torch.Tensor, nums: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A over a batch of pairs in one launch sequence: F0 [B, N0, C],
+    F1 [B, N1, C] (C <= 8), nums [B, 2] int32 on the device. Each pair's
+    (idx, d2) equal ``nn1_scan`` on that pair bit for bit."""
+    idx, d, launched = _run_batched("nn1_scan", 0, SCAN_MAX_C, F0, F1, nums)
+    nn1_scan_batched.launches += launched
+    return idx, d
+
+
+def nn1_mma_batched(F0: torch.Tensor, F1: torch.Tensor, nums: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B over a batch of pairs in one launch sequence (8 < C <= 64);
+    each pair's (idx, d2) equal ``nn1_mma`` on that pair bit for bit."""
+    idx, d, launched = _run_batched("nn1_mma", SCAN_MAX_C, _MAX_C, F0, F1, nums)
+    nn1_mma_batched.launches += launched
+    return idx, d
+
+
 def find_nn_cuda(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the hand-written 1-NN kernel for the rows' width on the current
@@ -168,6 +232,7 @@ def find_nn_cuda(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int
 
 
 nn1_scan.launches = nn1_mma.launches = find_nn_cuda.launches = 0
+nn1_scan_batched.launches = nn1_mma_batched.launches = 0
 
 
 def find_nn(F0: torch.Tensor, F1: torch.Tensor, num0: int | None = None,
@@ -182,6 +247,32 @@ def find_nn(F0: torch.Tensor, F1: torch.Tensor, num0: int | None = None,
         return find_nn_cuda(F0.float().contiguous(), F1.float().contiguous(),
                             num0, num1)
     return find_nn_plain(F0, F1, num0, num1)
+
+
+def pair_counts(num0, num1, device) -> torch.Tensor:
+    """Per-pair counts [B, 2] int32 on ``device`` from two [B] sequences or
+    int tensors (tensors already there are not copied)."""
+    nums = [torch.as_tensor(n, device=device).reshape(-1) for n in (num0, num1)]
+    return torch.stack(nums, dim=1).to(torch.int32).contiguous()
+
+
+def find_nn_batched(F0: torch.Tensor, F1: torch.Tensor, num0, num1
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1-NN of each pair's first ``num0[b]`` F0 rows among its first
+    ``num1[b]`` F1 rows: F0 [B, N0, C], F1 [B, N1, C], counts [B] (ints or
+    int tensors). Returns (idx [B, N0] int32, d2 [B, N0] f32); rows past
+    ``num0[b]`` and queries with no candidate give (0, +inf).
+
+    CUDA tensors run one batched launch of the width's kernel (or raise);
+    CPU tensors run ``find_nn_plain`` pair by pair."""
+    if F0.is_cuda or F1.is_cuda:
+        c = F0.shape[-1]
+        if not 0 < c <= _MAX_C:
+            raise ValueError(f"the 1-NN kernels take 1 <= C <= {_MAX_C}, got C={c}")
+        kernel = nn1_scan_batched if c <= SCAN_MAX_C else nn1_mma_batched
+        return kernel(F0.float().contiguous(), F1.float().contiguous(),
+                      pair_counts(num0, num1, F0.device))
+    return find_nn_batched_plain(F0, F1, num0, num1)
 
 
 def find_knn_cpu(feat0, feat1, knn: int = 1, return_distance: bool = False):

@@ -13,10 +13,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      32 and 64 to 2^-20 of |a|^2 + |b|^2 against the exact f64 d2; index
      mismatches only on near-ties, none on exact duplicates;
   3. the gather probe (``tools/gather_bench.py``, the counterpart of the JAX
-     package's ``tools/pallas_gather_bench.py``) with its launch counts set
-     to 0 just before and read just after; then both gather kernels against
-     their plain versions at the probe's full shape and at ragged index
-     counts (exact equality), and the plain versions' times;
+     package's ``tools/pallas_gather_bench.py``) at its bench shape and the
+     KITTI scale's, with its launch counts set to 0 just before each and
+     read just after; then both gather kernels against their plain versions
+     at each shape, at ragged index counts and on the view 4 bytes past the
+     indices' start (exact equality), and the plain versions' times;
   4. drive ``DeepGlobalRegistration.register()`` at the bench configuration
      (ResUNetBN2C FCGF conv1=7 / 32-dim, bf16 convs, 5 cm voxel, dense
      extent 256^3, random-init 6D inlier net, committed FCGF weights) on a
@@ -582,54 +583,70 @@ def gather_bound_ms(n: int, words: int, ops_per_index: int):
 
 
 def phase_gather() -> list:
-    """The gather probe as a path of its own (launch counts 0 just before,
-    read just after), then each kernel against its plain version at the
-    probe's shape and ragged index counts, and the plain versions' times."""
+    """The gather probe at each of its shapes (the bench's and the KITTI
+    scale's) as a path of its own, launch counts set to 0 just before each
+    shape and read just after; then each kernel against its plain version
+    bit for bit at each shape's N and N - 1 (and N = 1 at the bench's) and
+    on the view idx[1:], 4 bytes past the indices' start, and the plain
+    versions' times."""
     from deepglobalregistration_tpu_torch.ops import gather
     from deepglobalregistration_tpu_torch.tools import gather_bench as gb
 
-    gather.take_cuda.launches = gather.take2d_cuda.launches = 0
-    probe = gb.run("cuda")
-    launches = {"take": gather.take_cuda.launches,
-                "take2d": gather.take2d_cuda.launches}
-    print(json.dumps({"gather_probe": probe, "gather_launches": launches}),
-          flush=True)
-    if not (probe["take_exact"] and probe["take2d_exact"]):
-        fail("the gather probe found a kernel that is not exact")
-    if min(launches.values()) < 1:
-        fail(f"a gather kernel was not launched by the probe: {launches}")
+    probes, launches = {}, {}
+    for shape, (words, n) in gb.SHAPES.items():
+        gather.take_cuda.launches = gather.take2d_cuda.launches = 0
+        probes[shape] = gb.run("cuda", words=words, n=n)
+        launches[shape] = {"take": gather.take_cuda.launches,
+                           "take2d": gather.take2d_cuda.launches}
+        print(json.dumps({"gather_probe": probes[shape], "shape": shape,
+                          "gather_launches": launches[shape]}), flush=True)
+        if not (probes[shape]["take_exact"] and probes[shape]["take2d_exact"]):
+            fail(f"the gather probe ({shape}) found a kernel that is not exact")
+        if min(launches[shape].values()) < 1:
+            fail(f"a gather kernel was not launched by the {shape} probe: "
+                 f"{launches[shape]}")
 
-    table, idx = gb.make_inputs(device="cuda")
-    table2d = table.view(-1, gather.LANES)
     entries = []
-    for name, kernel, plain, tab, ops, line in (
-            ("take", gather.take_cuda, gather.take_plain, table, 1, 44),
-            ("take2d", gather.take2d_cuda, gather.take2d_plain, table2d, 3, 64)):
-        err = 0
-        for n in (gb.N, gb.N - 1, 1):
-            got, want = kernel(tab, idx[:n]), plain(tab, idx[:n])
-            torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.equal(got, want):
-                fail(f"gather {name}: kernel and plain version differ at N={n}")
-            err = max(err, int((got.long() - want.long()).abs().max()))
-        bound, by = gather_bound_ms(gb.N, gb.WORDS, ops)
+    for name, kernel, plain, ops, line in (
+            ("take", gather.take_cuda, gather.take_plain, 1, 44),
+            ("take2d", gather.take2d_cuda, gather.take2d_plain, 3, 64)):
         entry = {"name": f"gather_{name}", "route": "cuda",
                  "source": "deepglobalregistration_tpu_torch/csrc/gather.cu",
                  "replaces": f"tools/pallas_gather_bench.py:{line}",
-                 "launches": launches[name], "max_abs_err": err,
-                 "ms": probe[f"{name}_ms"],
-                 "plain_ms": gb.time_ms(lambda: plain(tab, idx)),
-                 "bound_ms": bound, "bound_by": by,
-                 "library_ms": probe["table_index_ms"],
-                 "shape": f"table {gb.WORDS} int32 words, N={gb.N} "
-                          f"(also checked at N={gb.N - 1} and 1)",
-                 "bound_formula": f"max((8 N + 4 W) B / 3.35 TB/s, {ops} N ops "
-                                  "/ 67 TOP/s)",
-                 "clock": probe["clock"]}
-        print(f"gather {name}: kernel {entry['ms']:.6f} ms, plain "
-              f"{entry['plain_ms']:.6f} ms, table[idx] {entry['library_ms']:.6f} "
-              f"ms, bound {bound:.6f} ms ({by}), launches {launches[name]}",
-              flush=True)
+                 "max_abs_err": 0}
+        for shape, (words, n) in gb.SHAPES.items():
+            table, idx = gb.make_inputs(words, n, device="cuda")
+            tab = table.view(-1, gather.LANES) if name == "take2d" else table
+            views = [(0, n), (0, n - 1), (1, n)]
+            if shape == "bench":
+                views.append((0, 1))
+            for a, b in views:
+                got, want = kernel(tab, idx[a:b]), plain(tab, idx[a:b])
+                torch.cuda.synchronize()
+                if got.shape != want.shape or not torch.equal(got, want):
+                    fail(f"gather {name} ({shape}): kernel and plain version "
+                         f"differ on idx[{a}:{b}]")
+                entry["max_abs_err"] = max(
+                    entry["max_abs_err"], int((got.long() - want.long()).abs().max()))
+            bound, by = gather_bound_ms(n, words, ops)
+            sfx = "" if shape == "bench" else f"_{shape}"
+            entry.update({
+                f"launches{sfx}": launches[shape][name],
+                f"ms{sfx}": probes[shape][f"{name}_ms"],
+                f"plain_ms{sfx}": gb.time_ms(lambda: plain(tab, idx)),
+                f"bound_ms{sfx}": bound, f"bound_by{sfx}": by,
+                f"library_ms{sfx}": probes[shape]["table_index_ms"]})
+            print(f"gather {name} ({shape}, W={words}, N={n}): kernel "
+                  f"{entry[f'ms{sfx}']:.6f} ms, plain {entry[f'plain_ms{sfx}']:.6f} "
+                  f"ms, table[idx] {entry[f'library_ms{sfx}']:.6f} ms, bound "
+                  f"{bound:.6f} ms ({by}), launches {launches[shape][name]}",
+                  flush=True)
+        entry.update({
+            "shape": "table W int32 words, N indices: bench W={} N={}; *_kitti: "
+                     "W={} N={} (each also checked at N - 1 and on idx[1:], the "
+                     "bench at N = 1)".format(*gb.SHAPES["bench"], *gb.SHAPES["kitti"]),
+            "bound_formula": f"max((8 N + 4 W) B / 3.35 TB/s, {ops} N ops / 67 TOP/s)",
+            "clock": probes["bench"]["clock"]})
         entries.append(entry)
     return entries
 

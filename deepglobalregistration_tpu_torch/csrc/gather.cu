@@ -1,22 +1,35 @@
 // Flat int32 gather out[i] = table[idx[i]] for Hopper (sm_90a), two forms.
 //
-// Replaces the TPU kernels of tools/pallas_gather_bench.py: pallas_take
-// (a flat take from a table held whole in VMEM) and pallas_take2d (the same
-// function as a row gather tab[idx >> 7] followed by the lane select
-// idx & 127). On the TPU the two forms differed only in what Mosaic could
-// lower. Here both are one thread per index: read the index, read the table
-// word it names through the read-only path (__ldg), write the word.
+// Replaces the TPU kernels of tools/pallas_gather_bench.py: take_kernel
+// replaces pallas_take (:44, a flat take from a table held whole in VMEM)
+// and take2d_kernel replaces pallas_take2d (:64, the same function as a row
+// gather tab[idx >> 7] followed by the lane select idx & 127). On the TPU
+// the two forms differed only in what Mosaic could lower; here they differ
+// only in how a table word is addressed.
 //
 // Contract: every idx[i] lies in [0, W) where W is the table's word count
 // (W = rows * 128 for the 2D form). Nothing is checked on the card: an index
 // outside the table reads outside it.
 //
-// What bounds it: N * 4 bytes of indices read, N * 4 bytes written and the
-// table's W * 4 bytes read once, against one or three integer operations per
-// index, so it is bound by bytes. The probe's 2 MiB table stays in the 50 MB
-// L2 after its first touch, so the random 4-byte table reads are served from
-// L2 sectors; the index and output streams are coalesced. The table is not
-// staged in shared memory: 2 MiB does not fit a block's 227 KB.
+// What bounds it. By the byte rule (each input read once, each output
+// written once): 8 N + 4 W bytes over 3.35 TB/s, against one (flat) or three
+// (2D) integer operations an index, so bytes. What a random 4-byte table
+// read really costs is a whole 32-byte L2 sector: N * 32 bytes of sector
+// traffic (14.2 MB at the bench probe's N = 442368, 56.6 MB at the KITTI
+// probe's N = 1769472) beside the 8 N bytes of coalesced index and output
+// streams. The probes' tables (2 MiB, 0.84 MiB) are larger than an SM's L1
+// and stay in the 50 MB L2, so the rate at which L2 serves random sectors
+// sets the pace, not the bytes the rule counts.
+//
+// Design: thread i reads idx[i] and the table word it names through the
+// read-only path (__ldg) and writes the word; a block for every 256
+// indices. At the L2's sector rate there is nothing left to schedule: wider
+// designs (V indices a thread with all V table reads in flight, streaming
+// 16-byte index loads and stores, one wave of blocks) and the table held in
+// a thread block cluster's distributed shared memory were measured beside
+// this one (tools/gather_variants.cu, tools/gather_sweep.py) and were no
+// faster at either probe shape; the wider design pays only for tables that
+// an SM's L1 holds, which no configuration of the repo has.
 //
 // Interface: plain C, loaded with ctypes. Returns cudaGetLastError().
 

@@ -13,6 +13,10 @@ gives them in-range indices only.
 ``take`` and ``take2d`` launch the kernel on CUDA tensors (or raise); CPU
 tensors take the plain versions ``take_plain`` and ``take2d_plain``, which
 are also what ``chip_smoke.py`` holds the kernels against on the card.
+
+Each kernel takes one index a thread. Wider designs and a table held in a
+cluster's distributed shared memory were no faster at the probes' shapes
+(``tools/gather_sweep.py``; the source note of ``csrc/gather.cu``).
 """
 
 from __future__ import annotations

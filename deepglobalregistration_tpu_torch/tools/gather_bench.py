@@ -1,13 +1,17 @@
-"""Gather probe: int32 lookups into a 2 MiB table, three ways.
+"""Gather probe: int32 lookups into an occupancy-bit table, three ways.
 
 Counterpart of the JAX package's ``tools/pallas_gather_bench.py``, with the
-same ``WORDS``-word table and ``N = 27 * 16384`` indices drawn from numpy's
-``default_rng(0)``. It times ``table[idx]`` (the counterpart of the probe's
-``xla_gather``), the flat kernel ``ops.gather.take`` and the row-then-lane
-kernel ``ops.gather.take2d``, and checks both kernels against ``table[idx]``
-(``exact=``).
+same ``WORDS``-word table (256^3 occupancy bits, 2 MiB) and ``N = 27 *
+16384`` indices drawn from numpy's ``default_rng(0)``. A second named shape,
+``kitti``, is the same probe at the KITTI-scale configuration
+(``tools/kitti_scale_smoke.py:59-60``): ``dense_extent`` 384x384x48 is
+``KITTI_WORDS = 221184`` words (0.84 MiB, 1728 rows of 128) and the 65536
+voxel bucket gives ``KITTI_N = 27 * 65536`` indices. It times ``table[idx]``
+(the counterpart of the probe's ``xla_gather``), the flat kernel
+``ops.gather.take`` and the row-then-lane kernel ``ops.gather.take2d``, and
+checks both kernels against ``table[idx]`` (``exact=``).
 
-    python -m deepglobalregistration_tpu_torch.tools.gather_bench [--device cpu]
+    python -m deepglobalregistration_tpu_torch.tools.gather_bench [--shape kitti] [--device cpu]
 
 On the card each time is the mean of one call over CUDA-graph replays
 between CUDA events, so the host's launch time is not in it; on the CPU
@@ -28,6 +32,9 @@ from ..utils import device as device_utils
 
 WORDS = 512 * 1024  # 2 MiB int32 table
 N = 27 * 16384      # indices per probe
+KITTI_WORDS = 384 * 384 * 48 // 32
+KITTI_N = 27 * 65536
+SHAPES = {"bench": (WORDS, N), "kitti": (KITTI_WORDS, KITTI_N)}
 
 
 def make_inputs(words: int = WORDS, n: int = N, seed: int = 0,
@@ -95,8 +102,10 @@ def run(device: str | torch.device = "cuda", words: int = WORDS, n: int = N,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="bench")
     args = ap.parse_args(argv)
-    r = run(args.device)
+    words, n = SHAPES[args.shape]
+    r = run(args.device, words=words, n=n)
     for name in ("table_index", "take", "take2d"):
         ms = r[f"{name}_ms"]
         exact = f"  exact={r[f'{name}_exact']}" if name != "table_index" else ""

@@ -123,7 +123,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(files) > 20
     walked = {f.relative_to(ROOT).as_posix() for f in files}
     for path in ("ops/gather.py", "ops/icp.py", "ops/ransac.py", "ops/knn.py",
-                 "tools/gather_bench.py", "tools/batch_bench.py",
+                 "tools/gather_bench.py", "tools/gather_sweep.py",
+                 "tools/batch_bench.py",
                  "utils/synthetic.py", "core/pipeline.py"):
         assert f"deepglobalregistration_tpu_torch/{path}" in walked
     banned = ("jax", "jaxlib", "optax", "deepglobalregistration_tpu")

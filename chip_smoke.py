@@ -63,10 +63,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      candidate-list ICP without the checked wrapper): finite poses, a rerun
      for exactly the pairs whose gate bit or ``cand_ok`` is false, the time
      of the batched program apart from the reruns;
- 11. print one JSON line describing every kernel, the card's line, and as
+ 11. the models: every entry of ``models.load_model``'s registry (47) at
+     its published widths, a bf16 forward over bench pair 0, finite and
+     timed; six representatives (SimpleNetBN2C, SimpleNetIN2,
+     ResUNetBN2Cv2, ResUNetBN2SPC, ResUNetINBNSPC, PyramidNet6INBN) with
+     non-trivial BN statistics, the card's f32 forward (BN folded) against
+     the CPU's (BN live); ``register()`` from ``default_config()``
+     (SimpleNetBN2C, 2.5 cm, random nets) on the four bench pairs; the
+     bench weights written as reference-schema ``.pth`` files, whose nets
+     must equal the ``.pkl``-built ones bit for bit, and ``register()`` from
+     the ``.pth`` held to the bench's pose limits;
+ 12. print one JSON line describing every kernel, the card's line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
-Each path (4-7, 9, 10) is driven with the kernels' launch counts set to 0 just
+Each path (4-7, 9, 10, 11's default configuration and .pth runs) is driven with the kernels' launch counts set to 0 just
 before it and read just after; launches made to compare a kernel with its
 plain version are not counted. Imports nothing of JAX. Exits non-zero when
 no CUDA device is visible.
@@ -351,6 +361,20 @@ def _host_ms(fn, reps: int = 3):
         out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3, out
+
+
+def _median_ms(fn, reps: int):
+    """Median host-clock ms of ``reps`` fn() calls, each synchronised, after
+    one warm-up call; returns it with the last call's output."""
+    out = fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts)), out
 
 
 def breakdown(dgr, pair, sec_per_pair: float, label: str = "bench") -> None:
@@ -1080,6 +1104,273 @@ def phase_batch_kitti(knn) -> dict:
             "timing": time_nn1_batched(knn, F0, F1, n0, n1, "KITTI feature match")}
 
 
+# Card against CPU (phase 11 b): f32 on both sides, TF32 off; features are
+# unit rows, so the largest |card - CPU| of any entry is relative to the row.
+MODELS_CARD_CPU_TOL = 1e-4
+MODELS_CARD_CPU = ("SimpleNetBN2C", "SimpleNetIN2", "ResUNetBN2Cv2", "ResUNetBN2SPC",
+                   "ResUNetINBNSPC", "PyramidNet6INBN")
+
+
+def _family(cfg) -> str:
+    """The registry family and structure of a model config."""
+    name = type(cfg).__name__.replace("Config", "")
+    fam = getattr(cfg, "family", None)
+    return f"{name} {fam}" if fam else name
+
+
+def _nontrivial_norms(params, state, rng):
+    """BN scales around 1, biases around 0 and running statistics away from
+    identity (the tests' ``numpy_tree`` rule), so that a BN left out shows."""
+    for key, sub in params.items():
+        if isinstance(sub, dict) and "weight" in sub:
+            sub["weight"] = (1 + 0.2 * rng.randn(*sub["weight"].shape)).astype(np.float32)
+            sub["bias"] = (0.1 * rng.randn(*sub["bias"].shape)).astype(np.float32)
+            st = state[key]
+            st["mean"] = (0.5 * rng.rand(*st["mean"].shape)).astype(np.float32)
+            st["var"] = (1 + 0.5 * rng.rand(*st["var"].shape)).astype(np.float32)
+        elif isinstance(sub, dict):
+            _nontrivial_norms(sub, state.get(key, {}), rng)
+
+
+def _plan(grid, batch_size, cfg, cache):
+    from deepglobalregistration_tpu_torch.models.unet_plan import build_unet_plan
+
+    key = (grid.device.type, cfg.region_type, cfg.levels, cfg.with_pooling)
+    if key not in cache:
+        cache[key] = build_unet_plan(grid, batch_size, cfg.conv1_kernel_size,
+                                     cfg.region_type, cfg.levels, ones_input=True,
+                                     with_pooling=cfg.with_pooling)
+    return cache[key]
+
+
+def me_state_dict(params: dict, state: dict) -> dict:
+    """(params, state) trees as a MinkowskiEngine state_dict, the layout of
+    the reference's .pth files (the inverse of the port's
+    ``checkpoint.convert_state_dict``): a norm's leaves under
+    ``<scope>.bn.``, k1 kernels as [Cin, Cout], ``num_batches_tracked``
+    beside each running mean."""
+    sd = {}
+
+    def walk(tree, prefix, is_state):
+        for k, v in tree.items():
+            name = f"{prefix}{k}"
+            if isinstance(v, dict):
+                walk(v, name + ".", is_state)
+                continue
+            arr = np.asarray(v, np.float32)
+            if is_state:
+                sd[f"{prefix}bn.running_{k}"] = torch.from_numpy(arr.copy())
+                if k == "mean":
+                    sd[f"{prefix}bn.num_batches_tracked"] = torch.tensor(0)
+            elif "weight" in tree:  # a norm's affine parameters
+                sd[f"{prefix}bn.{k}"] = torch.from_numpy(arr.copy())
+            else:
+                if k == "kernel" and arr.shape[0] == 1:
+                    arr = arr[0]
+                sd[name] = torch.from_numpy(arr.copy())
+
+    walk(params, "", False)
+    walk(state, "", True)
+    return sd
+
+
+def phase_models(knn) -> dict:
+    """Every model of the registry behind load_model, then the default
+    configuration and the reference's .pth format through register():
+    (a) all 47 entries at their published widths, a 3D forward over bench
+        pair 0 (both clouds, 5 cm, out 32, conv1 = 7, all-ones input, bf16,
+        BN folded as the pipeline folds it), each output finite and [N, 32],
+        timed in one round over all entries (the median of 10 calls each,
+        host clock between synchronisations, a warm-up first);
+    (b) six representatives (one a structure) with non-trivial BN
+        statistics: the card's f32 forward, BN folded, against the same net's
+        f32 forward on the CPU with BN live, on a smaller pair, to
+        MODELS_CARD_CPU_TOL;
+    (c) register() from DeepGlobalRegistration(default_config()) (SimpleNetBN2C
+        16-D, 6D ResUNetBN2C, 2.5 cm, f32, seeded random nets) on the four
+        bench pairs: finite T, s/pair and the stage timers (poses are not
+        held: the weights are random); then both kernels at this path's own
+        shapes and data, as in the bench and KITTI phases: pair 0's 16-D
+        feature match (nn1_mma) and its last ICP scan (nn1_scan), each held
+        against the plain version and timed;
+    (d) the bench weights written at run time as reference-schema .pth files
+        (MinkowskiEngine names, state_dict_inlier None, and a second file
+        with the seeded inlier tree written in): the nets built from them
+        equal the .pkl-built nets bit for bit, and register() from the first
+        holds the bench's gates on the four bench pairs.
+    (c) and (d) are paths of their own: launch counts set to 0 just before
+    and read just after."""
+    import tempfile
+
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core.pipeline import (
+        STAGES, DeepGlobalRegistration, build_net)
+    from deepglobalregistration_tpu_torch.models import MODELS, load_model
+    from deepglobalregistration_tpu_torch.ops import se3, sparse_grid
+    from deepglobalregistration_tpu_torch.utils import checkpoint, device
+    from deepglobalregistration_tpu_torch.utils.synthetic import synthetic_pair
+
+    pairs = [synthetic_pair(n=30000, seed=s) for s in range(4)]
+    out = {}
+
+    # (a) every registry entry at full width, bf16; one timing round over
+    # all 47 in turn, each the median of 10 synchronised calls (the forwards
+    # are launch-bound and the host clock jumps between calls).
+    x0, x1 = (torch.as_tensor(x, device="cuda") for x in pairs[0][:2])
+    grid = torch.cat([sparse_grid.voxelize(x0, 0.05, 0)[1],
+                      sparse_grid.voxelize(x1, 0.05, 1)[1]])
+    ones = torch.ones((grid.shape[0], 1), dtype=torch.bfloat16, device="cuda")
+    plans, nets, fams = {}, {}, {}
+    for name in MODELS:
+        spec = load_model(name)
+        cfg = spec.make_config(1, 32, conv1_kernel_size=7, normalize_feature=True, D=3)
+        tree = spec.init_params(device.generator(0), cfg)
+        nets[name] = (build_net(spec, tree, cfg, True, torch.bfloat16, "cuda"),
+                      _plan(grid, 2, cfg, plans))
+        fams.setdefault(_family(cfg), []).append(name)
+    if len(nets) != 47:
+        fail(f"models: the registry holds {len(nets)} entries, expected 47")
+    ms = {}
+    for name, (net, plan) in nets.items():
+        ms[name], feats = _median_ms(lambda: net(plan, ones), 10)
+        if feats.shape != (grid.shape[0], 32) or not bool(torch.isfinite(feats).all()):
+            fail(f"models: {name} gave {tuple(feats.shape)} features, finite: "
+                 f"{bool(torch.isfinite(feats).all())}")
+    del nets
+    per_family = {f: {"models": len(n), "ms_min": min(ms[m] for m in n),
+                      "ms_max": max(ms[m] for m in n)} for f, n in fams.items()}
+    print(json.dumps({"models_forward_ms": {
+        "rows": int(grid.shape[0]), "dtype": "bf16",
+        "per_model": ms, "per_family": per_family}}), flush=True)
+    out["forward_ms"] = ms
+
+    # (b) card against CPU, f32, non-trivial BN statistics.
+    small = synthetic_pair(n=8000, seed=4)
+    grid_c = torch.cat([sparse_grid.voxelize(torch.as_tensor(x), 0.05, b)[1]
+                        for b, x in enumerate(small[:2])])
+    ones_c = torch.ones((grid_c.shape[0], 1))
+    plans_c, errs = {}, {}  # keyed by device too: one cache for both sides
+    for i, name in enumerate(MODELS_CARD_CPU):
+        spec = load_model(name)
+        cfg = spec.make_config(1, 32, conv1_kernel_size=7, normalize_feature=True, D=3)
+        params, state = spec.init_params(device.generator(10 + i), cfg)
+        _nontrivial_norms(params, state, np.random.RandomState(i))
+        card = build_net(spec, (params, state), cfg, True, torch.float32, "cuda")
+        host = build_net(spec, (params, state), cfg, False, torch.float32, "cpu")
+        got = card(_plan(grid_c.cuda(), 2, cfg, plans_c), ones_c.cuda()).cpu()
+        want = host(_plan(grid_c, 2, cfg, plans_c), ones_c)
+        errs[name] = float((got - want).abs().max())
+        if not bool(torch.isfinite(got).all()) or errs[name] > MODELS_CARD_CPU_TOL:
+            fail(f"models: {name} on the card (BN folded) against the CPU (BN "
+                 f"live): max |diff| {errs[name]:.3e} (tolerance "
+                 f"{MODELS_CARD_CPU_TOL})")
+    print(json.dumps({"models_card_vs_cpu": {
+        "rows": int(grid_c.shape[0]), "tolerance": MODELS_CARD_CPU_TOL,
+        "max_abs_diff": errs}}), flush=True)
+    out["card_vs_cpu"] = errs
+
+    # (c) the default configuration, seeded random nets.
+    dgr = DeepGlobalRegistration(default_config(), device="cuda")
+    dgr.register(pairs[0][0], pairs[0][1])  # warm-up
+    for t in dgr.stage_timers.values():
+        t.reset()
+    dgr.overflow_count = 0
+    reset_counts(knn)
+    t0 = time.time()
+    Ts, branches = [], []
+    for xyz0, xyz1, _ in pairs:
+        Ts.append(dgr.register(xyz0, xyz1))
+        branches.append(dgr.last_branch)
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / len(pairs)
+    launches = counts(knn)
+    print(json.dumps({"default_config": {
+        "feat_model": dgr.fcgf_cfg.name, "feat_dim": dgr.fcgf_cfg.out_channels,
+        "inlier_model": dgr.inlier_cfg.name, "voxel_size": dgr.voxel_size,
+        "voxel_bucket": dgr._cap, "sec_per_pair": dt,
+        "stage_sec": {s: dgr.stage_timers[s].avg for s in STAGES},
+        "branch_per_pair": branches, "overflow_pairs": dgr.overflow_count,
+        "nn1_launches": launches,
+        "informational_rre_deg": [pose_errors(T, p[2])[0] for T, p in zip(Ts, pairs)]}}),
+        flush=True)
+    if not all(T.shape == (4, 4) and np.isfinite(T).all() for T in Ts):
+        fail("default_config(): non-finite or misshapen transform")
+    if dgr.fcgf_cfg.name != "SimpleNetBN2C" or launches["nn1_mma"] < len(pairs):
+        fail(f"default_config(): {dgr.fcgf_cfg.name}, nn1 launches {launches}")
+    out["default_launches"] = launches
+    # The kernels at this path's own shapes and data: pair 0's 16-D feature
+    # match, and its last ICP scan (the source moved by the final pose).
+    x0, x1 = dgr._as_tensor(pairs[0][0]), dgr._as_tensor(pairs[0][1])
+    with torch.no_grad():
+        sel0, sel1, _, _, a0, a1, _ = dgr.features(x0, x1)
+    if a0.shape[1] != 16:
+        fail(f"default_config(): {a0.shape[1]}-D features, expected 16")
+    moved = se3.apply_transform(
+        sel0, torch.as_tensor(Ts[0], dtype=torch.float32, device="cuda"))
+    out["default_timings"] = [
+        time_nn1(knn, a0, a1, "default_config() feature match (pair 0)"),
+        time_nn1(knn, moved.contiguous(), sel1, "default_config() ICP scan (pair 0)",
+                 bitwise=True)]
+
+    # (d) the reference's .pth format.
+    pkl = DeepGlobalRegistration(default_config(bf16=True, **BENCH), device="cuda")
+    ckpt = checkpoint.load_checkpoint(WEIGHTS)
+    net_cfg = {k: ckpt["config"][k] for k in (
+        "voxel_size", "feat_model", "feat_model_n_out", "feat_conv1_kernel_size",
+        "normalize_feature", "inlier_model", "inlier_conv1_kernel_size",
+        "inlier_feature_type", "bn_momentum")}
+    spec6 = load_model(net_cfg["inlier_model"])
+    inlier_tree = spec6.init_params(device.generator(1), spec6.make_config(
+        1, 1, conv1_kernel_size=net_cfg["inlier_conv1_kernel_size"], D=6))
+    fcgf_sd = me_state_dict(ckpt["state_dict"]["params"], ckpt["state_dict"]["state"])
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for fname, inlier in (("fcgf_only.pth", None), ("with_inlier.pth", inlier_tree)):
+            path = str(Path(d) / fname)
+            torch.save({"epoch": 0, "state_dict": fcgf_sd,
+                        "state_dict_inlier": None if inlier is None else
+                        me_state_dict(*inlier),
+                        "optimizer": None, "scheduler": None, "config": net_cfg,
+                        "best_val": -1.0, "best_val_epoch": -1,
+                        "best_val_metric": "succ_rate"}, path)
+            paths.append(path)
+        nets = [DeepGlobalRegistration(default_config(bf16=True, **dict(
+            BENCH, weights=path)), device="cuda") for path in paths]
+    same = {}
+    for tag, other in zip(("fcgf_only", "with_inlier"), nets):
+        for part in ("fcgf", "inlier"):
+            a, b = getattr(pkl, part).state_dict(), getattr(other, part).state_dict()
+            same[f"{tag}.{part}"] = a.keys() == b.keys() and all(
+                torch.equal(a[k], b[k]) for k in a)
+    trained = [n.inlier_trained for n in nets]
+    dgr = nets[0]
+    dgr.register(pairs[0][0], pairs[0][1])  # warm-up
+    dgr.overflow_count = 0
+    reset_counts(knn)
+    errs = [pose_errors(dgr.register(xyz0, xyz1), T_gt) for xyz0, xyz1, T_gt in pairs]
+    torch.cuda.synchronize()
+    launches = counts(knn)
+    rre = float(np.mean([e[0] for e in errs]))
+    rte = float(np.mean([e[1] for e in errs]))
+    print(json.dumps({"pth": {
+        "state_dict_equal_to_pkl": same, "inlier_trained": trained,
+        "rre_deg": rre, "rte_cm": rte * 100,
+        "rre_deg_per_pair": [e[0] for e in errs],
+        "rte_cm_per_pair": [e[1] * 100 for e in errs],
+        "overflow_pairs": dgr.overflow_count, "nn1_launches": launches}}), flush=True)
+    if not all(same.values()):
+        fail(f".pth: nets differ from the .pkl-built ones: {same}")
+    if trained != [False, True]:
+        fail(f".pth: inlier_trained {trained}, expected [False, True]")
+    if rre > RRE_DEG or rte > RTE_M or dgr.overflow_count:
+        fail(f".pth: mean rre {rre:.3f} deg / rte {rte * 100:.2f} cm, "
+             f"{dgr.overflow_count} overflow pairs (limits 1 deg / 10 cm / 0)")
+    if launches["nn1_mma"] < len(pairs):
+        fail(f".pth: nn1 launches {launches} for {len(pairs)} pairs")
+    out["pth_launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
@@ -1105,21 +1396,24 @@ def main() -> int:
     batch_err = phase_batch_kernels_random(knn)
     batch = phase_batch(knn)
     batch_kitti = phase_batch_kitti(knn)
+    models = phase_models(knn)
     feat, scan = e["timings"]
     kfeat, kscan = kitti["timings"]
+    dfeat, dscan = models["default_timings"]
     entries = []
-    for name, bench_r, kitti_r, path in (
-            ("nn1_scan", scan, kscan, "ICP scan"),
-            ("nn1_mma", feat, kfeat, "feature match")):
+    for name, bench_r, kitti_r, default_r, path in (
+            ("nn1_scan", scan, kscan, dscan, "ICP scan"),
+            ("nn1_mma", feat, kfeat, dfeat, "feature match")):
         entry = {"name": name, "route": "cuda",
                  "source": f"deepglobalregistration_tpu_torch/csrc/{name}.cu",
                  "replaces": "deepglobalregistration_tpu/ops/pallas_knn.py:33",
                  "launches": e["launches"][name],
                  "max_abs_err": max(synth_err[name], bench_r["max_abs_err"],
-                                    kitti_r["max_abs_err"]),
+                                    kitti_r["max_abs_err"], default_r["max_abs_err"]),
                  "shape": f"bench {path} {bench_r['shape']}; *_kitti: KITTI "
-                          f"{path} {kitti_r['shape']}"}
-        for suffix, r in (("", bench_r), ("_kitti", kitti_r)):
+                          f"{path} {kitti_r['shape']}; *_default: default_config() "
+                          f"{path} {default_r['shape']}"}
+        for suffix, r in (("", bench_r), ("_kitti", kitti_r), ("_default", default_r)):
             keys = ["ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "near_ties", "max_err_of_tolerance"]
             if name == "nn1_mma":
@@ -1127,7 +1421,9 @@ def main() -> int:
             entry.update({f"{k}{suffix}": r[k] for k in keys})
         entry.update({f"launches_{k}": v[name] for k, v in (
             ("kitti", kitti["launches"]), ("bench_icp_candidates", cand_launches),
-            ("staged", staged["staged"]), ("knn_cpu", staged["knn_cpu"]))})
+            ("staged", staged["staged"]), ("knn_cpu", staged["knn_cpu"]),
+            ("default_config", models["default_launches"]),
+            ("pth", models["pth_launches"]))})
         entries.append(entry)
     entries[1]["bound_note"] = ("bound_ms: 3 x 2 N0 N1 C TF32 operations at 495 "
                                 "TFLOP/s; bound_f32_ms: N0 N1 (2C + 3) at 67 TFLOP/s")

@@ -3,9 +3,12 @@
 A port of the JAX package ``deepglobalregistration_tpu`` (kept beside it as
 the reference). Module names mirror the JAX package so each counterpart is
 easy to find: ``ops/`` (geometry, grids, kernel maps, sparse convolution,
-1-NN), ``models/`` (ResUNet family), ``core/`` (refinement loop and the
+1-NN), ``models/`` (every model of the JAX registry behind ``load_model``:
+ResUNet, SimpleNet, PyramidNet), ``core/`` (refinement loop and the
 ``DeepGlobalRegistration`` pipeline, with ``register_batch``'s batched
-program), ``utils/`` (device policy, checkpoint loading, weight conversion),
+program), ``utils/`` (device policy, checkpoint loading of the reference's
+``.pth`` files and the JAX package's native ones, weight conversion, BN
+folding),
 ``tools/`` (the gather probe, ``register_batch`` against ``register_many``).
 
 The 1-NN searches run through two hand-written CUDA kernels, chosen by the

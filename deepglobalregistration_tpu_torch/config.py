@@ -30,6 +30,7 @@ class Config:
     dense_extent: str = ""
     icp_candidates: str = "auto"  # auto | on | off
     knn_search_method: str = "gpu"  # gpu (the 1-NN kernel) | cpu (host KD-tree)
+    fold_bn: bool = True  # fold inference BatchNorm into the convs at load
 
 
 # Keys of the JAX package's configuration that the port accepts and drops:

@@ -41,7 +41,8 @@ import numpy as np
 import torch
 from torch.nn.utils.rnn import pad_sequence
 
-from ..models import resunet
+from ..models import load_model
+from ..models.resunet import ResUNetConfig
 from ..models.unet_plan import build_unet_plan
 from ..ops import icp as icp_ops
 from ..ops import knn, ransac, se3, sparse_grid
@@ -88,6 +89,21 @@ def _bucket_for(n: int, buckets) -> int:
     raise ValueError(f"cloud with {n} points exceeds the largest bucket {buckets[-1]}")
 
 
+def build_net(spec, tree, cfg, fold_bn: bool, dtype: torch.dtype,
+              device: torch.device):
+    """The registry model ``spec`` with the (params, state) ``tree`` on
+    ``device`` in eval mode: BN folded if ``fold_bn``, weights rounded to
+    ``dtype`` (kept in f32 storage)."""
+    params, state = tree
+    if fold_bn:
+        params, state, cfg = fold_batch_norms(params, state, cfg)
+    net = spec.module(cfg)
+    net.load_state_dict(convert.from_jax_params(params, state, cfg))
+    if dtype != torch.float32:
+        net.round_weights(dtype)
+    return net.to(device).eval()
+
+
 def _get(cfg, key, default=None):
     return cfg.get(key, default) if isinstance(cfg, dict) else getattr(cfg, key, default)
 
@@ -98,9 +114,13 @@ class DeepGlobalRegistration:
 
     ``device`` defaults to ``"cuda"`` and raises when no card is visible;
     pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
-    With ``config.weights`` the checkpoint's embedded config picks voxel size
+    Both nets come from ``models.load_model`` (any registered family, the
+    inlier net in 6D). With ``config.weights`` (a reference ``.pth``/``.pt``
+    or a native checkpoint) the checkpoint's embedded config picks voxel size
     and models; a feature-only checkpoint gets a random inlier net drawn from
-    a seeded generator (``inlier_trained`` is then False)."""
+    a seeded generator (``inlier_trained`` is then False). Without weights
+    both nets are drawn from seeded generators. BatchNorm is folded into the
+    convs unless ``config.fold_bn`` is off."""
 
     def __init__(self, config, device: str | torch.device = "cuda"):
         self.device = device_utils.resolve_device(device)
@@ -135,8 +155,16 @@ class DeepGlobalRegistration:
         inlier_tree = None
         if config.weights:
             if str(config.weights).endswith((".pth", ".pt")):
-                raise NotImplementedError(".pth checkpoints are not ported yet")
-            state = checkpoint.load_checkpoint(config.weights)
+                state = checkpoint.load_torch_checkpoint(config.weights)
+                fcgf_tree = (state["fcgf_params"], state["fcgf_state"])
+                if "inlier_params" in state:
+                    inlier_tree = (state["inlier_params"], state["inlier_state"])
+            else:
+                state = checkpoint.load_checkpoint(config.weights)
+                fcgf_tree = (state["state_dict"]["params"], state["state_dict"]["state"])
+                if state.get("state_dict_inlier") is not None:
+                    si = state["state_dict_inlier"]
+                    inlier_tree = (si["params"], si["state"])
             net = state["config"]
             self.voxel_size = _get(net, "voxel_size")
             self.inlier_feature_type = _get(net, "inlier_feature_type")
@@ -147,10 +175,6 @@ class DeepGlobalRegistration:
             normalize = _get(net, "normalize_feature")
             inlier_model = _get(net, "inlier_model")
             inlier_k1 = _get(net, "inlier_conv1_kernel_size")
-            fcgf_tree = (state["state_dict"]["params"], state["state_dict"]["state"])
-            if state.get("state_dict_inlier") is not None:
-                si = state["state_dict_inlier"]
-                inlier_tree = (si["params"], si["state"])
         else:
             self.voxel_size = config.voxel_size
             self.inlier_feature_type = config.inlier_feature_type
@@ -159,28 +183,23 @@ class DeepGlobalRegistration:
             inlier_model = config.inlier_model
             inlier_k1 = config.inlier_conv1_kernel_size
             fcgf_tree = None
-        self.fcgf_cfg = resunet.make_config(
-            feat_model, 1, feat_n_out, conv1_kernel_size=feat_k1, normalize_feature=normalize, D=3)
+        fcgf_spec, inlier_spec = load_model(feat_model), load_model(inlier_model)
+        fcgf_cfg = fcgf_spec.make_config(
+            1, feat_n_out, conv1_kernel_size=feat_k1, normalize_feature=normalize, D=3)
         inlier_in = {"coords": 6, "feats": 2 * feat_n_out}.get(
             self.inlier_feature_type, 1)
-        self.inlier_cfg = resunet.make_config(
-            inlier_model, inlier_in, 1, conv1_kernel_size=inlier_k1, normalize_feature=False, D=6)
+        inlier_cfg = inlier_spec.make_config(
+            inlier_in, 1, conv1_kernel_size=inlier_k1, normalize_feature=False, D=6)
         if fcgf_tree is None:
-            fcgf_tree = resunet.init_params(device_utils.generator(0), self.fcgf_cfg)
+            fcgf_tree = fcgf_spec.init_params(device_utils.generator(0), fcgf_cfg)
         self.inlier_trained = inlier_tree is not None
         if inlier_tree is None:
-            inlier_tree = resunet.init_params(device_utils.generator(1), self.inlier_cfg)
-        self.fcgf = self._module(fcgf_tree, self.fcgf_cfg)
-        self.inlier = self._module(inlier_tree, self.inlier_cfg)
+            inlier_tree = inlier_spec.init_params(device_utils.generator(1), inlier_cfg)
+        dtype, dev = self.compute_dtype, self.device
+        self.fcgf = build_net(fcgf_spec, fcgf_tree, fcgf_cfg, config.fold_bn, dtype, dev)
+        self.inlier = build_net(inlier_spec, inlier_tree, inlier_cfg, config.fold_bn,
+                                dtype, dev)
         self.fcgf_cfg, self.inlier_cfg = self.fcgf.cfg, self.inlier.cfg
-
-    def _module(self, tree, cfg) -> resunet.ResUNet:
-        params, state, cfg = fold_batch_norms(*tree, cfg)
-        net = resunet.ResUNet(cfg)
-        net.load_state_dict(convert.from_jax_params(params, state, cfg))
-        if self.compute_dtype != torch.float32:
-            net.round_weights(self.compute_dtype)
-        return net.to(self.device).eval()
 
     def _as_tensor(self, pcd) -> torch.Tensor:
         if hasattr(pcd, "points"):
@@ -201,7 +220,8 @@ class DeepGlobalRegistration:
         plan = build_unet_plan(
             grid, batch_size, cfg.conv1_kernel_size, cfg.region_type, cfg.levels,
             capacity=cap, level_shrink=self.level_shrink,
-            dense_extent=self.dense_extent, ones_input=cfg.in_channels == 1)
+            dense_extent=self.dense_extent, ones_input=cfg.in_channels == 1,
+            with_pooling=cfg.with_pooling)
         ones = torch.ones((grid.shape[0], 1), dtype=self.compute_dtype,
                           device=self.device)
         return self.fcgf(plan, ones).float(), plan.overflow
@@ -211,10 +231,14 @@ class DeepGlobalRegistration:
         """6D inlier net on a grid [M, 7]; returns (logits [M, 1] f32, the JAX
         package's overflow count for the 6D plan)."""
         cfg = self.inlier_cfg
+        # The JAX package keys a 6D plan's box on c0 only in
+        # build_paired_unet_plan, which serves every ResUNet family but SP.
+        paired = isinstance(cfg, ResUNetConfig) and not cfg.with_pooling
         plan = build_unet_plan(c6, batch_size, cfg.conv1_kernel_size, cfg.region_type,
                                cfg.levels, capacity=cap,
                                level_shrink=self.level_shrink_6d,
-                               dense_extent=self.dense_extent)
+                               dense_extent=self.dense_extent if paired else None,
+                               with_pooling=cfg.with_pooling)
         return self.inlier(plan, ifeat.to(self.compute_dtype)).float(), plan.overflow
 
     def features(self, xyz0: torch.Tensor, xyz1: torch.Tensor):

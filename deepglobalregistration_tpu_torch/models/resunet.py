@@ -1,12 +1,22 @@
-"""Residual sparse U-Nets of the v1 family (ResUNet / ResUNet2).
+"""Residual sparse U-Nets: the ResUNet families.
 
-Counterpart of the JAX package's ``models/resunet.py:80-81, 209-311`` for
-the "v1_3" and "v1_4" families: encoder conv -> norm -> block (the block's
-output is the skip) -> relu; decoder conv_tr -> norm -> block -> relu ->
-concat(skip); tail conv1_tr (k1) -> relu -> final (k1, bias); optional
-feature normalisation ``x / (sqrt(max(sum x^2, 1e-24)) + 1e-8)`` in f32.
-Works in 3D (FCGF) and 6D (inlier net). The v2 and SP families are not on
-this slice's path.
+Counterpart of the JAX package's ``models/resunet.py``, one engine for five
+families:
+
+- "v1_3" / "v1_4" (ResUNet, ResUNet2): encoder conv -> norm -> block (the
+  block's output is the skip) -> relu; decoder conv_tr -> norm -> block ->
+  relu -> concat(skip).
+- "v2" (ResUNet2v2): relu before the block stack on both sides, blocks are
+  Sequential stacks (``block1.0.conv1.kernel``), kaiming fan-out init.
+- "sp3" (ResUNetSP): k2/s2 sum pooling then a k1 conv going down; going up
+  the pooling transpose then a k1 conv at stage L, a k1 conv then the
+  pooling transpose at the inner stages (the reference's order).
+- "sp4" (ResUNet2SP): sum pooling then a k3 stride-1 conv going down,
+  strided conv_tr going up.
+
+Every family ends in conv1_tr (k1) -> relu -> final (k1, bias), with the
+optional feature normalisation ``x / (sqrt(max(sum x^2, 1e-24)) + 1e-8)``
+in f32. Works in 3D (FCGF) and 6D (inlier net).
 """
 
 from __future__ import annotations
@@ -15,7 +25,6 @@ import dataclasses
 from typing import Tuple
 
 import torch
-from torch import nn
 
 from ..ops import kernel_map
 from ..ops import sparse_conv as sc
@@ -26,11 +35,12 @@ from .unet_plan import UNetPlan
 @dataclasses.dataclass(frozen=True)
 class ResUNetConfig:
     name: str
-    family: str  # v1_3 | v1_4
+    family: str  # v1_3 | v1_4 | v2 | sp3 | sp4
     norm_type: str
     channels: Tuple[int, ...]
     tr_channels: Tuple[int, ...]
     block_norm_type: str = "BN"
+    depths: Tuple[int, ...] = ()  # block-stack depth per level (v2 / SP)
     region_type: int = kernel_map.HYPER_CUBE
     in_channels: int = 1
     out_channels: int = 32
@@ -42,16 +52,22 @@ class ResUNetConfig:
     def levels(self) -> int:
         return len(self.channels) - 1
 
+    @property
+    def with_pooling(self) -> bool:
+        return self.family.startswith("sp")
+
 
 _C3 = dict(channels=(0, 32, 64, 128), tr_channels=(0, 32, 64, 64))
 _C4 = (0, 32, 64, 128, 256)
 _VARIANTS = {
+    # 3-level v1
     "ResUNetBN": dict(_C3, family="v1_3", norm_type="BN"),
     "ResUNetBNF": dict(family="v1_3", norm_type="BN", channels=(0, 16, 32, 64),
                        tr_channels=(0, 16, 32, 64)),
     "ResUNetBNFX": dict(family="v1_3", norm_type="BN", channels=(0, 16, 32, 64),
                         tr_channels=(0, 16, 32, 64),
                         region_type=kernel_map.HYPER_CROSS),
+    # 4-level v1
     "ResUNetBN2": dict(family="v1_4", norm_type="BN", channels=_C4,
                        tr_channels=(0, 32, 64, 64, 128)),
     "ResUNetBN2B": dict(family="v1_4", norm_type="BN", channels=_C4,
@@ -64,6 +80,32 @@ _VARIANTS = {
                         tr_channels=(0, 64, 128, 128, 128)),
     "ResUNetBN2F": dict(family="v1_4", norm_type="BN", channels=(0, 16, 32, 64, 128),
                         tr_channels=(0, 16, 32, 64, 128)),
+    # v2: one block a level
+    "ResUNetBN2v2": dict(family="v2", norm_type="BN", channels=_C4,
+                         tr_channels=(0, 32, 64, 64, 128), depths=(1,) * 8),
+    "ResUNetBN2Bv2": dict(family="v2", norm_type="BN", channels=_C4,
+                          tr_channels=(0, 64, 64, 64, 64), depths=(1,) * 8),
+    "ResUNetBN2Cv2": dict(family="v2", norm_type="BN", channels=_C4,
+                          tr_channels=(0, 64, 64, 64, 128), depths=(1,) * 8),
+    "ResUNetBN2Dv2": dict(family="v2", norm_type="BN", channels=_C4,
+                          tr_channels=(0, 64, 64, 128, 128), depths=(1,) * 8),
+    "ResUNetBN2Ev2": dict(family="v2", norm_type="BN", channels=(0, 128, 128, 128, 256),
+                          tr_channels=(0, 64, 128, 128, 128), depths=(1,) * 8),
+    "ResUNetBN2Fv2": dict(family="v2", norm_type="BN", channels=(0, 16, 32, 64, 128),
+                          tr_channels=(0, 16, 32, 64, 128), depths=(1,) * 8),
+    # SP: sum pooling down, pooling transpose (sp3) or strided conv_tr (sp4) up
+    "ResUNetSP": dict(_C3, family="sp3", norm_type="BN", depths=(1,) * 6),
+    "ResUNetBNSPC": dict(_C3, family="sp3", norm_type="BN", depths=(1,) * 6,
+                         region_type=kernel_map.HYPER_CROSS),
+    "ResUNetINBNSPC": dict(_C3, family="sp3", norm_type="INBN", depths=(1,) * 6,
+                           region_type=kernel_map.HYPER_CROSS),
+    "ResUNet2SP": dict(family="sp4", norm_type="BN", channels=_C4,
+                       tr_channels=(0, 64, 64, 64, 128), depths=(1,) * 8),
+    "ResUNetBN2SPC": dict(family="sp4", norm_type="BN", channels=_C4,
+                          tr_channels=(0, 64, 64, 64, 128), depths=(1,) * 8),
+    "ResUNetBN2SPCX": dict(family="sp4", norm_type="BN", channels=_C4,
+                           tr_channels=(0, 64, 64, 64, 128), depths=(1,) * 8,
+                           region_type=kernel_map.HYPER_CROSS),
 }
 _VARIANTS["ResUNetBN2CX"] = dict(_VARIANTS["ResUNetBN2C"],
                                  region_type=kernel_map.HYPER_CROSS)
@@ -75,8 +117,7 @@ def make_config(name: str, in_channels: int, out_channels: int,
                 conv1_kernel_size: int = 3, normalize_feature: bool = False,
                 D: int = 3) -> ResUNetConfig:
     if name not in _VARIANTS:
-        raise NotImplementedError(f"model {name} is not ported yet; ported: "
-                                  f"{sorted(_VARIANTS)}")
+        raise ValueError(f"unknown ResUNet variant {name}")
     return ResUNetConfig(name=name, in_channels=in_channels,
                          out_channels=out_channels,
                          conv1_kernel_size=conv1_kernel_size,
@@ -88,68 +129,96 @@ def _kvol(cfg: ResUNetConfig, ks: int) -> int:
     return kernel_map.kernel_offsets(ks, cfg.D, cfg.region_type).shape[0]
 
 
-class ResUNet(nn.Module):
+def _depth(cfg: ResUNetConfig, name: str) -> int:
+    """Blocks in the stack ``name`` (block{i} or block{i}_tr: depths[i])."""
+    if not cfg.depths:
+        return 1
+    i = int(name[len("block"):].replace("_tr", ""))
+    return cfg.depths[min(i, len(cfg.depths) - 1)]
+
+
+def _layout(cfg: ResUNetConfig):
+    """(name, Cin, Cout, kernel volume) of every conv but the k1 tail, the
+    (name suffix, C) of every norm-and-block stage, and the k3 volume."""
+    C, TR, L = cfg.channels, cfg.tr_channels, cfg.levels
+    k3, k1 = _kvol(cfg, 3), _kvol(cfg, cfg.conv1_kernel_size)
+    kin = 1 if cfg.family == "sp3" else k3  # sp3's inner convs are k1
+    convs = [("conv1", cfg.in_channels, C[1], k1)]
+    stages = [("1", C[1])]
+    for i in range(2, L + 1):
+        convs.append((f"conv{i}", C[i - 1], C[i], kin))
+        stages.append((f"{i}", C[i]))
+    for i in range(L, 1, -1):
+        convs.append((f"conv{i}_tr", C[L] if i == L else C[i] + TR[i + 1], TR[i], kin))
+        stages.append((f"{i}_tr", TR[i]))
+    return convs, stages, k3
+
+
+class ResUNet(common.Net):
     """The network; parameter names follow the JAX package's trees."""
 
     def __init__(self, cfg: ResUNetConfig):
         super().__init__()
         self.cfg = cfg
-        C, TR, L = cfg.channels, cfg.tr_channels, cfg.levels
-        k3, k1 = _kvol(cfg, 3), _kvol(cfg, cfg.conv1_kernel_size)
+        C, TR = cfg.channels, cfg.tr_channels
         folded = cfg.norm_type == "NONE"
-
-        def add(name, module):
-            self.add_module(name, module)
-
-        add("conv1", common.Conv(k1, cfg.in_channels, C[1], bias=folded))
-        add("norm1", common.Norm(cfg.norm_type, C[1]))
-        add("block1", residual_block.BasicBlock(cfg.block_norm_type, C[1], k3))
-        for i in range(2, L + 1):
-            add(f"conv{i}", common.Conv(k3, C[i - 1], C[i], bias=folded))
-            add(f"norm{i}", common.Norm(cfg.norm_type, C[i]))
-            add(f"block{i}", residual_block.BasicBlock(cfg.block_norm_type, C[i], k3))
-        for i in range(L, 1, -1):
-            cin = C[L] if i == L else C[i] + TR[i + 1]
-            add(f"conv{i}_tr", common.Conv(k3, cin, TR[i], bias=folded))
-            add(f"norm{i}_tr", common.Norm(cfg.norm_type, TR[i]))
-            add(f"block{i}_tr", residual_block.BasicBlock(cfg.block_norm_type, TR[i], k3))
-        add("conv1_tr", common.Conv(1, C[1] + TR[2], TR[1]))
-        add("final", common.Conv(1, TR[1], cfg.out_channels, bias=True))
-
-    def round_weights(self, dtype: torch.dtype) -> None:
-        """Round every weight to ``dtype`` (kept in f32 storage): the convs
-        then compute exactly as on bf16 weights with f32 accumulation."""
-        with torch.no_grad():
-            for p in self.parameters():
-                p.copy_(p.to(dtype).float())
+        stacked = cfg.family in ("v2", "sp3", "sp4")
+        convs, stages, k3 = _layout(cfg)
+        for name, cin, cout, kv in convs:
+            self.add_module(name, common.Conv(kv, cin, cout, bias=folded))
+        for sfx, c in stages:
+            self.add_module(f"norm{sfx}", common.Norm(cfg.norm_type, c))
+            block = (residual_block.BlockStack(_depth(cfg, f"block{sfx}"),
+                                               cfg.block_norm_type, c, k3)
+                     if stacked else
+                     residual_block.BasicBlock(cfg.block_norm_type, c, k3))
+            self.add_module(f"block{sfx}", block)
+        self.conv1_tr = common.Conv(1, C[1] + TR[2], TR[1])
+        self.final = common.Conv(1, TR[1], cfg.out_channels, bias=True)
 
     @torch.no_grad()
     def forward(self, plan: UNetPlan, feats: torch.Tensor) -> torch.Tensor:
         """feats [N_0, Cin] in the compute dtype -> [N_0, out_channels]."""
-        L = self.cfg.levels
+        L, fam = self.cfg.levels, self.cfg.family
         m = self._modules
         skips = []
         out = feats
         for i in range(1, L + 1):
             lvl = i - 1
+            seg = plan.seg(lvl)
             if i == 1:
-                if plan.conv1_ones is not None:
-                    out = sc.conv1_ones(plan.conv1_ones, m["conv1"].kernel,
-                                        m["conv1"].bias, feats.dtype)
-                else:
-                    out = m["conv1"](out, plan.conv1)
+                out = common.first_conv(m["conv1"], plan, out)
+            elif fam in ("sp3", "sp4"):
+                out = sc.sparse_sum_pool(out, plan.pool_downs[i - 2])
+                out = m[f"conv{i}"](out, None if fam == "sp3" else plan.selfs[lvl])
             else:
                 out = m[f"conv{i}"](out, plan.downs[i - 2])
-            out = m[f"block{i}"](m[f"norm{i}"](out), plan.selfs[lvl])
-            skips.append(out)
-            out = sc.relu(out)
+            out = m[f"norm{i}"](out, seg)
+            if fam == "v2":
+                out = m[f"block{i}"](sc.relu(out), plan.selfs[lvl], seg)
+                skips.append(out)
+            else:
+                out = m[f"block{i}"](out, plan.selfs[lvl], seg)
+                skips.append(out)
+                out = sc.relu(out)
         for i in range(L, 1, -1):
             lvl = i - 2
-            out = m[f"norm{i}_tr"](m[f"conv{i}_tr"](out, plan.ups[lvl]))
-            out = sc.relu(m[f"block{i}_tr"](out, plan.selfs[lvl]))
+            seg = plan.seg(lvl)
+            conv = m[f"conv{i}_tr"]
+            if fam == "sp3" and i == L:
+                out = conv(sc.sparse_sum_pool(out, plan.pool_ups[lvl]), None)
+            elif fam == "sp3":
+                out = sc.sparse_sum_pool(conv(out, None), plan.pool_ups[lvl])
+            else:
+                out = conv(out, plan.ups[lvl])
+            out = m[f"norm{i}_tr"](out, seg)
+            if fam in ("v2", "sp3", "sp4"):
+                out = m[f"block{i}_tr"](sc.relu(out), plan.selfs[lvl], seg)
+            else:
+                out = sc.relu(m[f"block{i}_tr"](out, plan.selfs[lvl], seg))
             out = torch.cat([out, skips[lvl]], dim=-1)
-        out = sc.relu(m["conv1_tr"](out, None))
-        out = m["final"](out, None)
+        out = sc.relu(self.conv1_tr(out, None))
+        out = self.final(out, None)
         if self.cfg.normalize_feature:
             out = out.float()
             n2 = torch.sum(out * out, dim=-1, keepdim=True)
@@ -159,30 +228,27 @@ class ResUNet(nn.Module):
 
 def init_params(gen: torch.Generator, cfg: ResUNetConfig):
     """Random (params, state) trees in the JAX package's layout, with the
-    distribution of its ``resunet.init`` (kaiming fan-in, BN identity)."""
-    C, TR, L = cfg.channels, cfg.tr_channels, cfg.levels
-    k3, k1 = _kvol(cfg, 3), _kvol(cfg, cfg.conv1_kernel_size)
+    distribution of its ``resunet.init`` (kaiming fan-in, fan-out for v2;
+    identity BN)."""
+    C, TR = cfg.channels, cfg.tr_channels
+    fan = "out" if cfg.family == "v2" else "in"
+    stacked = cfg.family in ("v2", "sp3", "sp4")
+    convs, stages, k3 = _layout(cfg)
     params, state = {}, {}
-
-    def norm(name, c):
-        params[name], state[name] = common.init_norm(cfg.norm_type, c)
-
-    def block(name, c):
-        params[name], state[name] = residual_block.init_block(
-            gen, cfg.block_norm_type, c, k3)
-
-    params["conv1"] = common.init_conv(gen, k1, cfg.in_channels, C[1])
-    norm("norm1", C[1])
-    block("block1", C[1])
-    for i in range(2, L + 1):
-        params[f"conv{i}"] = common.init_conv(gen, k3, C[i - 1], C[i])
-        norm(f"norm{i}", C[i])
-        block(f"block{i}", C[i])
-    for i in range(L, 1, -1):
-        cin = C[L] if i == L else C[i] + TR[i + 1]
-        params[f"conv{i}_tr"] = common.init_conv(gen, k3, cin, TR[i])
-        norm(f"norm{i}_tr", TR[i])
-        block(f"block{i}_tr", TR[i])
-    params["conv1_tr"] = common.init_conv(gen, 1, C[1] + TR[2], TR[1])
-    params["final"] = common.init_conv(gen, 1, TR[1], cfg.out_channels, bias=True)
+    for name, cin, cout, kv in convs:
+        params[name] = common.init_conv(gen, kv, cin, cout, fan=fan)
+    for sfx, c in stages:
+        params[f"norm{sfx}"], state[f"norm{sfx}"] = common.init_norm(cfg.norm_type, c)
+        name = f"block{sfx}"
+        if stacked:
+            params[name], state[name] = {}, {}
+            for d in range(_depth(cfg, name)):
+                params[name][str(d)], state[name][str(d)] = residual_block.init_block(
+                    gen, cfg.block_norm_type, c, k3, fan=fan)
+        else:
+            params[name], state[name] = residual_block.init_block(
+                gen, cfg.block_norm_type, c, k3, fan=fan)
+    params["conv1_tr"] = common.init_conv(gen, 1, C[1] + TR[2], TR[1], fan=fan)
+    params["final"] = common.init_conv(gen, 1, TR[1], cfg.out_channels, bias=True,
+                                       fan=fan)
     return params, state

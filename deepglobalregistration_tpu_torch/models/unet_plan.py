@@ -1,10 +1,14 @@
 """Coordinate pyramid and exact kernel maps for U-Net-shaped sparse nets.
 
 Counterpart of the JAX package's ``models/unet_plan.py:41-142``
-(``build_unet_plan``, the 3D FCGF plan) and ``:275-480``
+(``build_unet_plan``, the 3D plan of every family) and ``:275-480``
 (``build_paired_unet_plan``, the 6D inlier plan). One function builds both:
 the 6D tiers, caps and budgets of the JAX package exist for XLA's static
 shapes and have no counterpart here, because every map is an exact edge list.
+With ``with_pooling`` it also builds the SP families' k2/s2 sum-pooling maps
+(level i -> i + 1 over the even cube [0, 2)^D at unit 2^i, whatever the
+net's region) and their transposes. The k1 convs of the sp3 family need no
+map: a kernel-size-1 conv on its own grid is a plain product.
 
 What the JAX package would have dropped is counted instead: a level holding
 more rows than its capacity ``max(capacity // shrink**level, 128)``, or a
@@ -32,6 +36,14 @@ class UNetPlan:
     downs: List[EdgeMap]                 # level i -> i + 1
     ups: List[EdgeMap]                   # level i + 1 -> i (transposed downs)
     overflow: int                        # cloud-levels the JAX package would truncate
+    batch_size: int                      # clouds in the batch (column 0's range)
+    pool_downs: List[EdgeMap]            # k2/s2 sum pooling, level i -> i + 1
+    pool_ups: List[EdgeMap]              # its transpose, level i + 1 -> i
+
+    def seg(self, level: int):
+        """(cloud index of each row, clouds) at ``level``: what a per-cloud
+        norm needs."""
+        return self.grids[level][:, 0], self.batch_size
 
 
 def _occupancy(edges: kernel_map.Edges) -> torch.Tensor:
@@ -59,7 +71,7 @@ def _box_overflow(grid: torch.Tensor, batch_size: int, level: int,
 def build_unet_plan(grid0: torch.Tensor, batch_size: int, conv1_kernel_size: int,
                     region_type: int, n_levels: int, capacity: int | None = None,
                     level_shrink: int = 2, dense_extent: Sequence[int] | None = None,
-                    ones_input: bool = False) -> UNetPlan:
+                    ones_input: bool = False, with_pooling: bool = False) -> UNetPlan:
     """Pyramid (tensor strides 1, 2, .., 2^(L-1)) and every map of one batched
     grid [N, 1 + D]. ``capacity``/``level_shrink``/``dense_extent`` only feed
     the overflow count; the maps are exact regardless."""
@@ -101,6 +113,16 @@ def build_unet_plan(grid0: torch.Tensor, batch_size: int, conv1_kernel_size: int
             kernel_map.build_kernel_map(grids[i], grids[i + 1], offs3, 2 ** i))
         downs.append(dn)
         ups.append(up)
+    pool_downs, pool_ups = [], []
+    if with_pooling:
+        offs2 = kernel_map.kernel_offsets(2, ndim)
+        for i in range(n_levels - 1):
+            dn, up = edge_conv.build_edge_maps(
+                kernel_map.build_kernel_map(grids[i], grids[i + 1], offs2, 2 ** i))
+            pool_downs.append(dn)
+            pool_ups.append(up)
     return UNetPlan(grids=grids, conv1=conv1, conv1_ones=conv1_ones, selfs=selfs,
-                    downs=downs, ups=ups, overflow=int(overflow))
+                    downs=downs, ups=ups, overflow=int(overflow),
+                    batch_size=batch_size, pool_downs=pool_downs,
+                    pool_ups=pool_ups)
 

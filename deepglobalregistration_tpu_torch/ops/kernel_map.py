@@ -32,16 +32,20 @@ def kernel_offsets(kernel_size: int, ndim: int, region_type: int = HYPER_CUBE
 
     HYPER_CUBE enumerates the cube in odometer order with dimension 0
     FASTEST, MinkowskiEngine's order and the order of the [K, Cin, Cout]
-    weights: another order silently scrambles trained kernels. HYPER_CROSS
-    lists the centre, then per dimension the offsets -r..-1, 1..r."""
+    weights: another order silently scrambles trained kernels. An odd
+    cube spans -r..r, an even one 0..k-1 (MinkowskiEngine's convention,
+    used by the SP families' k2/s2 sum pooling). HYPER_CROSS lists the
+    centre, then per dimension the offsets -r..-1, 1..r; it has no even
+    form."""
     r = kernel_size // 2
-    if kernel_size % 2 == 0:
-        raise NotImplementedError("even kernels are not on this slice's path")
     if region_type == HYPER_CUBE:
-        ranges = [np.arange(-r, r + 1) for _ in range(ndim)]
+        lo, hi = (0, kernel_size - 1) if kernel_size % 2 == 0 else (-r, r)
+        ranges = [np.arange(lo, hi + 1) for _ in range(ndim)]
         mesh = np.meshgrid(*reversed(ranges), indexing="ij")
         offs = np.stack([m.ravel() for m in reversed(mesh)], axis=1)
     elif region_type == HYPER_CROSS:
+        if kernel_size % 2 == 0:
+            raise NotImplementedError("even kernels only defined for HYPER_CUBE")
         rows = [np.zeros((1, ndim), np.int64)]
         for d in range(ndim):
             for step in list(range(-r, 0)) + list(range(1, r + 1)):

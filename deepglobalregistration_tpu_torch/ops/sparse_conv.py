@@ -1,6 +1,7 @@
-"""Sparse convolution over exact edge maps, plus inference norms.
+"""Sparse convolution and sum pooling over exact edge maps, plus inference
+norms and nonlinearities.
 
-Counterpart of the JAX package's ``ops/sparse_conv.py:35-121`` and
+Counterpart of the JAX package's ``ops/sparse_conv.py:35-171`` and
 ``ops/edge_conv.py:sparse_conv_edges``:
 
     out[p] = sum over edges (k, j, p) of  W[k]^T x[j]   (+ bias)
@@ -44,6 +45,18 @@ def sparse_conv(feats: torch.Tensor, kernel: torch.Tensor, em: EdgeMap,
     return out.to(feats.dtype)
 
 
+def sparse_sum_pool(feats: torch.Tensor, em: EdgeMap) -> torch.Tensor:
+    """Unweighted sum over a map's edges (MinkowskiSumPooling, and with the
+    transposed map MinkowskiPoolingTranspose): out[p] = sum of x[j] over the
+    edges (k, j, p). Sums in f32, stored in the input's dtype."""
+    x = torch.cat([feats.float(), feats.new_zeros((1, feats.shape[1]),
+                                                  dtype=torch.float32)])
+    out = torch.zeros((em.n_out + 1, feats.shape[1]), dtype=torch.float32,
+                      device=feats.device)
+    out.index_add_(0, em.tile_out, x[em.tile_in])
+    return out[:em.n_out].to(feats.dtype)
+
+
 def linear(feats: torch.Tensor, kernel: torch.Tensor,
            bias: torch.Tensor | None = None) -> torch.Tensor:
     """A kernel-size-1 convolution on its own grid: x @ W[0] (+ bias)."""
@@ -75,5 +88,27 @@ def batch_norm_infer(feats: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     return ((feats.float() - mean) * inv * scale + bias).to(feats.dtype)
 
 
+def instance_norm(feats: torch.Tensor, batch: torch.Tensor, batch_size: int,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Per-cloud, per-channel normalisation (MinkowskiInstanceNorm without
+    affine). ``batch`` [N] holds each row's cloud index: statistics are
+    taken over each cloud's rows alone, as the JAX package's ``vmap`` of
+    ``instance_norm`` over [B, N, C] takes them, in f32 (biased variance)."""
+    x = feats.float()
+    c = x.shape[1]
+    # index_add_ rather than bincount, whose output size syncs the host.
+    count = x.new_zeros((batch_size, 1)).index_add_(
+        0, batch, x.new_ones((x.shape[0], 1))).clamp_min(1)
+    mean = x.new_zeros((batch_size, c)).index_add_(0, batch, x) / count
+    d = x - mean[batch]
+    var = x.new_zeros((batch_size, c)).index_add_(0, batch, d * d) / count
+    return (d * torch.rsqrt(var + eps)[batch]).to(feats.dtype)
+
+
 def relu(feats: torch.Tensor) -> torch.Tensor:
     return torch.clamp(feats, min=0)
+
+
+def elu(feats: torch.Tensor) -> torch.Tensor:
+    """x for x > 0, exp(x) - 1 otherwise (``jax.nn.elu``)."""
+    return torch.where(feats > 0, feats, torch.expm1(feats))

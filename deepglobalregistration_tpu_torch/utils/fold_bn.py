@@ -1,10 +1,15 @@
 """Fold inference-mode BatchNorm into the preceding conv (load-time fusion).
 
-A copy of the JAX package's ``utils/fold_bn.py`` over numpy parameter trees:
-``y = (x - m) * g / sqrt(v + eps) + b`` after a bias-free conv folds into
-the conv kernel (scaled per output channel) plus a bias. Supported: the
-conv{i}/norm{i} (+_tr) naming of the ResUNet family, including residual-block
-conv1/norm1/conv2/norm2 subtrees, with norm_type 'BN'.
+Counterpart of the JAX package's ``utils/fold_bn.py`` over numpy parameter
+trees: ``y = (x - m) * g / sqrt(v + eps) + b`` after a conv folds into the
+conv kernel (scaled per output channel) plus a bias. A pair is a conv and
+its norm side by side in one subtree: ``conv{s}`` / ``norm{s}`` (every
+ResUNet and SimpleNet stage, the residual blocks' conv1 / norm1 and conv2 /
+norm2, at any depth of the tree) or ``"0"`` / ``"1"`` (PyramidNet's
+conv_norm_non Sequentials). Nets with IN or INBN norms pass through
+unfolded. The JAX function folds only the first kind and still marks a
+PyramidNet 'NONE', so its PyramidNet runs with no BN at all; here a net is
+marked 'NONE' only once no BN is left unfolded.
 """
 
 from __future__ import annotations
@@ -30,40 +35,43 @@ def _fold_pair(conv: Dict[str, Any], norm_p: Dict[str, Any],
     return out
 
 
-def _is_block(v) -> bool:
-    return isinstance(v, dict) and "conv1" in v and "norm1" in v
+def _norm_name(name: str) -> str | None:
+    if name.startswith("conv"):
+        return "norm" + name[len("conv"):]
+    return "1" if name == "0" else None
 
 
-def _fold_block(bp: Dict[str, Any], bs: Dict[str, Any]):
-    new = dict(bp)
-    for i in ("1", "2"):
-        new[f"conv{i}"] = _fold_pair(bp[f"conv{i}"], bp[f"norm{i}"], bs[f"norm{i}"])
-        new[f"norm{i}"] = {}
-    return new
+def _fold_tree(params: Dict[str, Any], state: Dict[str, Any]) -> Dict[str, Any]:
+    out = dict(params)
+    for name, value in params.items():
+        if not isinstance(value, dict):
+            continue
+        norm = _norm_name(name)
+        if "kernel" in value:
+            if norm in params and "weight" in params[norm]:
+                out[name] = _fold_pair(value, params[norm], state[norm])
+                out[norm] = {}
+        elif "weight" not in value:
+            out[name] = _fold_tree(value, state.get(name, {}))
+    return out
+
+
+def _has_bn(tree) -> bool:
+    return isinstance(tree, dict) and (
+        "weight" in tree or any(_has_bn(v) for v in tree.values()))
 
 
 def fold_batch_norms(params: Dict[str, Any], state: Dict[str, Any], cfg
                      ) -> Tuple[Dict[str, Any], Dict[str, Any], Any]:
-    """Returns (params', state', cfg') with BN folded and norm types 'NONE'
-    (cfg unchanged unless norm_type and block_norm_type are 'BN')."""
+    """Returns (params', state', cfg') with every BN folded and the norm types
+    'NONE' (unchanged unless norm_type and block_norm_type are 'BN'). The
+    state tree is returned as it is: 'NONE' norms never read it."""
     if getattr(cfg, "norm_type", None) != "BN" or \
             getattr(cfg, "block_norm_type", "BN") != "BN":
         return params, state, cfg
-
-    new_p: Dict[str, Any] = {}
-    for name, value in params.items():
-        if name.startswith("conv"):
-            norm_name = name.replace("conv", "norm")
-            if norm_name in params and params[norm_name]:
-                new_p[name] = _fold_pair(value, params[norm_name], state[norm_name])
-            else:
-                new_p[name] = value
-        elif name.startswith("norm"):
-            new_p[name] = {}
-        elif _is_block(value):
-            new_p[name] = _fold_block(value, state[name])
-        else:
-            new_p[name] = value
+    new_p = _fold_tree(params, state)
+    if _has_bn(new_p):
+        raise ValueError(f"{cfg.name}: a BatchNorm follows no conv and cannot fold")
     fields = {"norm_type": "NONE"}
     if hasattr(cfg, "block_norm_type"):
         fields["block_norm_type"] = "NONE"

@@ -125,7 +125,10 @@ def test_port_and_chip_smoke_import_no_jax():
     for path in ("ops/gather.py", "ops/icp.py", "ops/ransac.py", "ops/knn.py",
                  "tools/gather_bench.py", "tools/gather_sweep.py",
                  "tools/batch_bench.py",
-                 "utils/synthetic.py", "core/pipeline.py"):
+                 "utils/synthetic.py", "core/pipeline.py",
+                 "models/__init__.py", "models/simpleunet.py",
+                 "models/pyramidnet.py", "utils/checkpoint.py",
+                 "utils/fold_bn.py"):
         assert f"deepglobalregistration_tpu_torch/{path}" in walked
     banned = ("jax", "jaxlib", "optax", "deepglobalregistration_tpu")
     for f in files:

@@ -73,10 +73,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      bench weights written as reference-schema ``.pth`` files, whose nets
      must equal the ``.pkl``-built ones bit for bit, and ``register()`` from
      the ``.pth`` held to the bench's pose limits;
- 12. print one JSON line describing every kernel, the card's line, and as
+ 12. the evaluation entry points: ``demo.main([])`` (bundled weights, held
+     to success and the bench's pose limits); the 3DMatch script's
+     ``evaluate`` over the four bench pairs written as PLY fragments with a
+     gt.log (recall 1, the bench's pose limits, the npz); the KITTI
+     script's loader with two workers over a KITTI-layout drive of
+     120k-point scans, whose ground-truth ICP runs on the card in this
+     process first (within 0.1 deg / 1 cm of the fixture's exact poses;
+     its last scan bit for bit the plain version's, and timed), then
+     ``evaluate`` at the KITTI-scale configuration;
+ 13. print one JSON line describing every kernel, the card's line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
-Each path (4-7, 9, 10, 11's default configuration and .pth runs) is driven with the kernels' launch counts set to 0 just
+Each path (4-7, 9, 10, 11's default configuration and .pth runs, 12's
+demo, 3DMatch loop, KITTI ground truth and KITTI loop) is driven with the kernels' launch counts set to 0 just
 before it and read just after; launches made to compare a kernel with its
 plain version are not counted. Imports nothing of JAX. Exits non-zero when
 no CUDA device is visible.
@@ -277,7 +287,7 @@ def time_nn1(knn, F0, F1, label: str, bitwise: bool = False) -> dict:
     r["ms"] = time_ms(lambda: kernel(F0, F1, n0, n1))
     r["eager_ms"] = cuda_ms(lambda: kernel(F0, F1, n0, n1))
     r["plain_ms"] = cuda_ms(lambda: knn.find_nn_plain(F0, F1, n0, n1), 5)
-    r["library_ms"] = cuda_ms(lambda: torch.cdist(F0, F1).argmin(1), 5)
+    r["library_ms"] = _library_nn1_ms(F0, F1)
     r["bound_ms"], r["bound_by"] = nn1_bound_ms(n0, n1, c, tensor_cores=mma)
     bounds = f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}"
     if mma:
@@ -286,7 +296,7 @@ def time_nn1(knn, F0, F1, label: str, bitwise: bool = False) -> dict:
     r["shape"] = f"{n0}x{n1} C={c}"
     print(f"nn1 {label} {r['shape']} ({kernel.__name__}): kernel {r['ms']:.4f} ms "
           f"(eager {r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
-          f"torch.cdist+argmin {r['library_ms']:.4f} ms, {bounds})", flush=True)
+          f"torch.cdist+argmin {r['library_ms']} ms, {bounds})", flush=True)
     return r
 
 
@@ -594,7 +604,7 @@ def phase_end_to_end(knn) -> dict:
     print(f"small pair: card vs CPU plain path max |dT| {gap:.3e}", flush=True)
     if gap > 1e-3:
         fail("card and CPU disagree on the small pair beyond 1e-3")
-    return {"launches": launches, "timings": timings, "pairs": pairs}
+    return {"launches": launches, "timings": timings, "pairs": pairs, "Ts": Ts}
 
 
 def gather_bound_ms(n: int, words: int, ops_per_index: int):
@@ -1371,6 +1381,279 @@ def phase_models(knn) -> dict:
     return out
 
 
+# KITTI odometry's velodyne -> cam0 extrinsics (column-vector convention),
+# as tests/test_kitti_loader.py writes its fixture.
+VELO_TO_CAM0 = np.eye(4)
+VELO_TO_CAM0[:3, :3] = np.array([
+    7.533745e-03, -9.999714e-01, -6.166020e-04, 1.480249e-02, 7.280733e-04,
+    -9.998902e-01, 9.998621e-01, 7.523790e-03, 1.480755e-02]).reshape(3, 3)
+VELO_TO_CAM0[:3, 3] = [-4.069766e-03, -7.631618e-02, -2.717806e-01]
+THREEDMATCH_SCENE = "7-scenes-redkitchen"  # scene 0 of the 3DMatch test split
+
+
+class Recorder:
+    """A method for the evaluation loops that keeps each register() answer
+    and its iterations."""
+
+    def __init__(self, dgr):
+        self.dgr, self.Ts, self.iterations = dgr, [], []
+
+    def register(self, xyz0, xyz1):
+        T = self.dgr.register(xyz0, xyz1)
+        self.Ts.append(T)
+        self.iterations.append(dict(self.dgr.last_iterations))
+        return T
+
+
+def _pose_z(deg: float, t) -> np.ndarray:
+    P = np.eye(4)
+    c, s = np.cos(np.radians(deg)), np.sin(np.radians(deg))
+    P[:2, :2] = [[c, -s], [s, c]]
+    P[:3, 3] = t
+    return P
+
+
+def write_kitti_fixture(root: Path, seed: int = 0) -> dict:
+    """A drive of 120k-point LiDAR-like scans (``lidar_like_pair``'s
+    geometry) in KITTI odometry's layout: drive 08, scans 0, 2 and 4, each
+    the points of scan 0 re-expressed in the velo frame of its cam0 pose
+    (yaw 1 deg and 1.5 m a step), and the poses file; drives 09 and 10 (the
+    rest of the test split) one scan each, so they give no pair. Returns
+    {(t0, t1): the exact velo_t0 -> velo_t1 transform}."""
+    from deepglobalregistration_tpu_torch.utils.synthetic import lidar_like_pair
+
+    xyz0 = lidar_like_pair(seed=seed)[0].astype(np.float64)
+    poses = [_pose_z(1.0 * t, (1.5 * t, 0.1 * t, 0.0)) for t in range(5)]
+    tr, tr_inv = VELO_TO_CAM0, np.linalg.inv(VELO_TO_CAM0)
+
+    def velo(t0, t1):
+        return tr_inv @ np.linalg.inv(poses[t1]) @ poses[t0] @ tr
+
+    seq = root / "dataset" / "sequences"
+    for drive, scans in ((8, (0, 2, 4)), (9, (0,)), (10, (0,))):
+        (seq / f"{drive:02d}" / "velodyne").mkdir(parents=True)
+        for t in scans:
+            M = velo(0, t)
+            pts = np.ones((len(xyz0), 4), np.float32)
+            pts[:, :3] = xyz0 @ M[:3, :3].T + M[:3, 3]
+            pts.tofile(seq / f"{drive:02d}" / "velodyne" / f"{t:06d}.bin")
+    (root / "dataset" / "poses").mkdir(parents=True)
+    np.savetxt(root / "dataset" / "poses" / "08.txt",
+               np.stack([P[:3].reshape(12) for P in poses]))
+    return {(0, 2): velo(0, 2), (2, 4): velo(2, 4)}
+
+
+def _library_nn1_ms(F0, F1) -> float | None:
+    """``torch.cdist`` + ``argmin`` over the whole [N0, N1] distance matrix
+    (cdist's one large allocation), when it fits the card's free memory
+    after the allocator's cache is emptied; else None."""
+    need = F0.shape[0] * F1.shape[0] * 4
+    if need > 2 ** 30:
+        torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    if need > 0.85 * free:
+        print(f"library_ms: the {F0.shape[0]} x {F1.shape[0]} distance matrix "
+              f"({need / 2 ** 30:.1f} GiB) does not fit in {free / 2 ** 30:.1f} "
+              "GiB free: not measured", flush=True)
+        return None
+    ms = cuda_ms(lambda: torch.cdist(F0, F1).argmin(1), 5)
+    if need > 2 ** 30:
+        torch.cuda.empty_cache()
+    return ms
+
+
+def _register_s_per_pair(dgr, pairs) -> float:
+    """register() over the pairs, host clock, s/pair."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in pairs:
+        dgr.register(p[0], p[1])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(pairs)
+
+
+def phase_eval(knn, bench_pairs, bench_Ts) -> dict:
+    """The evaluation entry points on the card, each a path of its own with
+    the launch counts set to 0 just before and read just after:
+    (a) ``demo.main([])``: the bundled weights, the synthetic pair, held to
+        success at 0.3 m / 15 deg and to rre <= 1 deg, rte <= 10 cm;
+    (b) the 3DMatch script's ``evaluate`` over ``ThreeDMatchTrajectoryDataset``
+        at the bench configuration, on the four bench pairs written as
+        binary PLY fragments with a gt.log (poses inv(T_gt)): recall 1.0,
+        mean rre <= 1 deg and rte <= 10 cm, the npz (1, 4, 5), one nn1_mma a
+        pair and one nn1_scan an ICP step; each pose's gap to phase 4's
+        register() of the same pair is printed, not held (atomic
+        ``index_add_`` moves poses run to run);
+    (c) the KITTI script's loader (``make_data_loader`` as its ``main``
+        builds it, two workers) over a KITTI-layout drive of 120k-point
+        scans at the KITTI-scale configuration: the ground truth is computed
+        on the card in this process before the workers start (its own
+        path, ``launches_kitti_gt``) and must lie within 0.1 deg and 1 cm of
+        the fixture's exact transform; the first pair's last ground-truth
+        ICP scan against the plain version, bit for bit, and timed; then
+        ``evaluate`` (poses not held: random nets).
+    Each loop's s/pair is printed beside register()'s on the same pairs and
+    instance just before and after it, and the KITTI loader's host time an
+    item (``dataset[k]`` in this process)."""
+    import tempfile
+
+    from deepglobalregistration_tpu_torch import demo
+    from deepglobalregistration_tpu_torch.config import default_config, get_config
+    from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
+    from deepglobalregistration_tpu_torch.data.factory import make_data_loader
+    from deepglobalregistration_tpu_torch.data.threedmatch import (
+        ThreeDMatchTrajectoryDataset)
+    from deepglobalregistration_tpu_torch.scripts import test_3dmatch, test_kitti
+    from deepglobalregistration_tpu_torch.utils.file import CameraPose, write_trajectory
+    from deepglobalregistration_tpu_torch.utils.pointcloud import write_point_cloud
+
+    out = {}
+    # (a) the demo.
+    reset_counts(knn)
+    t0 = time.perf_counter()
+    r = demo.main([])
+    torch.cuda.synchronize()
+    r_demo = {"rre_deg": r["rre"], "rte_cm": r["rte"] * 100, "success": r["success"],
+              "s": time.perf_counter() - t0, "nn1_launches": counts(knn)}
+    print(json.dumps({"eval_demo": r_demo}), flush=True)
+    if not r["success"] or r["rre"] > RRE_DEG or r["rte"] > RTE_M:
+        fail(f"demo: {r_demo} (limits 1 deg / 10 cm)")
+    if r_demo["nn1_launches"]["nn1_mma"] < 1 or r_demo["nn1_launches"]["nn1_scan"] < 1:
+        fail(f"demo: nn1 launches {r_demo['nn1_launches']}")
+    out["demo"] = r_demo["nn1_launches"]
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        # (b) the 3DMatch loop.
+        scene = d / "3dmatch" / THREEDMATCH_SCENE
+        scene.mkdir(parents=True)
+        (d / "3dmatch" / f"{THREEDMATCH_SCENE}-evaluation").mkdir()
+        traj = []
+        for k, (xyz0, xyz1, T_gt) in enumerate(bench_pairs):
+            write_point_cloud(scene / f"cloud_bin_{2 * k}.ply", xyz0)
+            write_point_cloud(scene / f"cloud_bin_{2 * k + 1}.ply", xyz1)
+            traj.append(CameraPose([2 * k, 2 * k + 1, 2 * len(bench_pairs)],
+                                   np.linalg.inv(T_gt.astype(np.float64))))
+        write_trajectory(traj, d / "3dmatch" / f"{THREEDMATCH_SCENE}-evaluation" / "gt.log")
+        cfg = default_config(bf16=True, threed_match_dir=str(d / "3dmatch"),
+                             out_dir=str(d / "out"), **BENCH)
+        dgr = DeepGlobalRegistration(cfg, device=cfg.device)
+        dgr.register(bench_pairs[0][0], bench_pairs[0][1])  # warm-up
+        dset = ThreeDMatchTrajectoryDataset("test", random_scale=False,
+                                            random_rotation=False, scene_id=0, config=cfg)
+        loader = torch.utils.data.DataLoader(dset, batch_size=1, shuffle=False,
+                                             collate_fn=test_3dmatch._identity)
+        method = Recorder(dgr)
+        direct = [_register_s_per_pair(dgr, bench_pairs)]
+        reset_counts(knn)
+        t0 = time.perf_counter()
+        stats = test_3dmatch.evaluate([method], ["DGR-torch"], loader, cfg)
+        torch.cuda.synchronize()
+        s_pair = (time.perf_counter() - t0) / len(bench_pairs)
+        launches = counts(knn)
+        direct.append(_register_s_per_pair(dgr, bench_pairs))
+        saved = np.load(d / "out" / "3dmatch-stats.npz")["stats"]
+        icp_steps = sum(i.get("icp", 0) for i in method.iterations)
+        r3 = {"recall": float(stats[0, :, 0].mean()),
+              "rre_deg": float(stats[0, :, 2].mean()),
+              "rte_cm": float(stats[0, :, 1].mean() * 100),
+              "s_per_pair": s_pair, "register_s_per_pair": float(stats[0, :, 3].mean()),
+              "direct_register_s_per_pair_before_after": direct,
+              "npz_shape": list(saved.shape), "icp_steps": icp_steps,
+              "max_abs_T_gap_to_phase_4": [float(np.abs(a - b).max())
+                                           for a, b in zip(method.Ts, bench_Ts)],
+              "nn1_launches": launches}
+        print(json.dumps({"eval_3dmatch": r3}), flush=True)
+        if r3["recall"] != 1.0 or r3["rre_deg"] > RRE_DEG or r3["rte_cm"] > RTE_M * 100:
+            fail(f"3DMatch loop: {r3} (recall 1, limits 1 deg / 10 cm)")
+        if saved.shape != (1, len(bench_pairs), 5):
+            fail(f"3DMatch loop: npz of shape {saved.shape}")
+        if launches["nn1_mma"] != len(bench_pairs) or launches["nn1_scan"] < icp_steps:
+            fail(f"3DMatch loop: nn1 launches {launches}, expected nn1_mma "
+                 f"{len(bench_pairs)} and nn1_scan >= {icp_steps}")
+        out["3dmatch"] = launches
+
+        # (c) the KITTI loop.
+        exact = write_kitti_fixture(d / "kitti")
+        cfg = get_config([
+            "--dataset", "KITTIPairDataset", "--kitti_dir", str(d / "kitti"),
+            "--kitti_max_time_diff", "3", "--icp_cache_path", str(d / "icp"),
+            "--out_dir", str(d / "out"), "--bf16", "true",
+            *[a for k, v in KITTI.items() for a in (f"--{k}", str(v))]])
+        dgr = DeepGlobalRegistration(cfg, device=cfg.device)
+        reset_counts(knn)
+        t0 = time.perf_counter()
+        loader = make_data_loader(cfg, "test", batch_size=1,
+                                  num_workers=cfg.test_num_workers, shuffle=False)
+        torch.cuda.synchronize()
+        gt_s = time.perf_counter() - t0
+        gt_launches = counts(knn)
+        ds = loader.dataset
+        gt_err = {}
+        for (drive, t0_, t1_) in ds.files:
+            M2 = np.load(d / "icp" / f"{drive}_{t0_}_{t1_}.npy")
+            gt_err[f"{t0_}_{t1_}"] = pose_errors(M2, exact[(t0_, t1_)])
+        print(json.dumps({"kitti_gt": {
+            "pairs": ds.files, "workers": loader.num_workers, "gt_log": ds.gt_log,
+            "prepare_s": gt_s, "err_deg_m": gt_err, "nn1_launches": gt_launches}}),
+            flush=True)
+        if sorted(f[1:] for f in ds.files) != sorted(exact) or len(ds.gt_log) != len(exact):
+            fail(f"KITTI loop: pairs {ds.files}, ground-truth ICP runs {ds.gt_log}")
+        if any(e[0] > 0.1 or e[1] > 0.01 for e in gt_err.values()):
+            fail(f"KITTI loop: ground truth off the fixture's exact pose {gt_err} "
+                 "(limits 0.1 deg / 1 cm)")
+        if gt_launches["nn1_scan"] < sum(g["iterations"] + 1 for g in ds.gt_log):
+            fail(f"KITTI ground truth: nn1 launches {gt_launches} for {ds.gt_log}")
+        # The first pair's last ground-truth scan: the source at its final pose.
+        M, src, tgt = ds.icp_inputs(*ds.load_scans(0))
+        M2 = np.load(d / "icp" / ("%d_%d_%d.npy" % ds.files[0]))
+        T_icp = torch.as_tensor(np.linalg.inv(M) @ M2, dtype=torch.float32, device="cuda")
+        from deepglobalregistration_tpu_torch.ops import se3
+
+        moved = se3.apply_transform(torch.as_tensor(src, device="cuda"), T_icp).contiguous()
+        tgt = torch.as_tensor(tgt, device="cuda")
+        timing = time_nn1(knn, moved, tgt, "KITTI ground-truth ICP scan (pair 0)",
+                          bitwise=True)
+
+        item_s, items = [], []
+        for k in range(len(ds)):  # the loader's host work, in this process
+            t0 = time.perf_counter()
+            items.append(ds[k][:2])
+            item_s.append(time.perf_counter() - t0)
+        method = Recorder(dgr)
+        dgr.register(*items[0])  # warm-up
+        direct = [_register_s_per_pair(dgr, items)]
+        dgr.cand_fallbacks = 0
+        reset_counts(knn)
+        t0 = time.perf_counter()
+        stats = test_kitti.evaluate(cfg, loader, method)
+        torch.cuda.synchronize()
+        s_pair = (time.perf_counter() - t0) / len(ds)
+        launches = counts(knn)
+        fallbacks = dgr.cand_fallbacks
+        direct.append(_register_s_per_pair(dgr, items))
+        rk = {"s_per_pair": s_pair, "register_s_per_pair": float(stats[:, 3].mean()),
+              "direct_register_s_per_pair_before_after": direct,
+              "loader_item_host_s": item_s, "cand_fallbacks": fallbacks,
+              "loop_minus_register_s_per_pair": s_pair - float(stats[:, 3].mean()),
+              "informational_recall": float(stats[:, 0].mean()),
+              "informational_rre_deg": stats[:, 2].tolist(),
+              "icp_mode_per_pair": [i.get("icp_mode") for i in method.iterations],
+              "gt_icp_iterations": [g["iterations"] for g in ds.gt_log],
+              "gt_icp_s_per_pair": [g["s"] for g in ds.gt_log],
+              "gt_icp_rows": [g["rows"] for g in ds.gt_log],
+              "npz": (d / "out" / "kitti-stats.npz").exists(), "nn1_launches": launches}
+        print(json.dumps({"eval_kitti": rk}), flush=True)
+        if not rk["npz"] or stats.shape != (len(ds), 5) or not np.isfinite(stats).all():
+            fail(f"KITTI loop: stats {stats.shape}, npz written {rk['npz']}")
+        # One match a pair; candidate-list ICP scans only on a fallback.
+        if launches["nn1_mma"] != len(ds) or launches["nn1_scan"] < fallbacks:
+            fail(f"KITTI loop: nn1 launches {launches} for {len(ds)} pairs and "
+                 f"{fallbacks} full-scan fallbacks")
+        out["kitti"], out["kitti_gt"], out["kitti_gt_timing"] = launches, gt_launches, timing
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
@@ -1397,6 +1680,7 @@ def main() -> int:
     batch = phase_batch(knn)
     batch_kitti = phase_batch_kitti(knn)
     models = phase_models(knn)
+    ev = phase_eval(knn, e["pairs"], e["Ts"])
     feat, scan = e["timings"]
     kfeat, kscan = kitti["timings"]
     dfeat, dscan = models["default_timings"]
@@ -1423,7 +1707,17 @@ def main() -> int:
             ("kitti", kitti["launches"]), ("bench_icp_candidates", cand_launches),
             ("staged", staged["staged"]), ("knn_cpu", staged["knn_cpu"]),
             ("default_config", models["default_launches"]),
-            ("pth", models["pth_launches"]))})
+            ("pth", models["pth_launches"]), ("eval_demo", ev["demo"]),
+            ("eval_3dmatch", ev["3dmatch"]), ("eval_kitti", ev["kitti"]))})
+        if name == "nn1_scan":  # the KITTI loader's ground-truth ICP
+            g = ev["kitti_gt_timing"]
+            entry.update({f"{k}_kitti_gt": g[k] for k in (
+                "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "near_ties", "max_err_of_tolerance", "shape")})
+            entry["launches_kitti_gt"] = ev["kitti_gt"]["nn1_scan"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], g["max_abs_err"])
+            entry["shape"] += (f"; *_kitti_gt: KITTI loader ground-truth ICP scan "
+                               f"{g['shape']}")
         entries.append(entry)
     entries[1]["bound_note"] = ("bound_ms: 3 x 2 N0 N1 C TF32 operations at 495 "
                                 "TFLOP/s; bound_f32_ms: N0 N1 (2C + 3) at 67 TFLOP/s")

@@ -34,7 +34,6 @@ per-pair freezing; pairs whose gate or candidate lists fail rerun through
 from __future__ import annotations
 
 import logging
-import time
 from typing import Dict
 
 import numpy as np
@@ -48,6 +47,7 @@ from ..ops import icp as icp_ops
 from ..ops import knn, ransac, se3, sparse_grid
 from ..utils import checkpoint, convert, device as device_utils
 from ..utils.fold_bn import fold_batch_norms
+from ..utils.timer import Timer
 from . import registration
 
 log = logging.getLogger(__name__)
@@ -57,29 +57,6 @@ STAGES = ("voxelize", "fcgf", "match", "inlier", "solve", "icp")
 # Voxel bucket from which icp_candidates="auto" takes candidate lists (the
 # JAX package's ``_ICP_CAND_MIN_CAP``).
 _ICP_CAND_MIN_CAP = 32768
-
-
-class Timer:
-    """tic/toc stopwatch with call averaging (the JAX package's utils/timer)."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.total_time = 0.0
-        self.calls = 0
-        self.start_time = 0.0
-        self.avg = 0.0
-
-    def tic(self):
-        self.start_time = time.perf_counter()
-
-    def toc(self) -> float:
-        diff = time.perf_counter() - self.start_time
-        self.total_time += diff
-        self.calls += 1
-        self.avg = self.total_time / self.calls
-        return diff
 
 
 def _bucket_for(n: int, buckets) -> int:

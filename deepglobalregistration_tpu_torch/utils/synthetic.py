@@ -6,6 +6,11 @@ shuffled copy. ``lidar_like_pair`` is a copy of
 ``tools/kitti_scale_smoke.py:lidar_like_pair``: a 120k-point LiDAR-like scan
 (~20k voxels at 0.3 m, up to 45 m range) against the same points moved by a
 20-degree turn about z and a shift.
+
+They serve ``demo.py`` and ``chip_smoke.py`` (its bench pairs, KITTI-scale
+pairs and evaluation fixtures). The synthetic datasets of the training and
+evaluation loaders (``SyntheticPairDataset``, ``SyntheticLidarPairDataset``,
+``SyntheticTrajectoryDataset``) are in ``data/synthetic.py``.
 """
 
 from __future__ import annotations

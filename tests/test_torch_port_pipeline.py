@@ -128,7 +128,12 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils/synthetic.py", "core/pipeline.py",
                  "models/__init__.py", "models/simpleunet.py",
                  "models/pyramidnet.py", "utils/checkpoint.py",
-                 "utils/fold_bn.py"):
+                 "utils/fold_bn.py", "native.py", "config.py", "demo.py",
+                 "ops/metrics.py", "utils/file.py", "utils/pointcloud.py",
+                 "utils/timer.py", "data/base.py", "data/collate.py",
+                 "data/factory.py", "data/kitti.py", "data/synthetic.py",
+                 "data/threedmatch.py", "data/transforms.py",
+                 "scripts/test_3dmatch.py", "scripts/test_kitti.py"):
         assert f"deepglobalregistration_tpu_torch/{path}" in walked
     banned = ("jax", "jaxlib", "optax", "deepglobalregistration_tpu")
     for f in files:

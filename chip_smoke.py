@@ -82,11 +82,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      process first (within 0.1 deg / 1 cm of the fixture's exact poses;
      its last scan bit for bit the plain version's, and timed), then
      ``evaluate`` at the KITTI-scale configuration;
- 13. print one JSON line describing every kernel, the card's line, and as
+ 13. training at the bench configuration, full width, batch 4
+     (``phase_train``): 8 steps on one batch (finite, falling loss), one
+     step holding ``nn1_mma_batched`` to one launch and to its plain
+     version, the step's stage split, s/step, peak memory (with and
+     without ``--remat``) and busy share, one step on the card against the
+     CPU, ``train.main`` with validation, resume and the checkpoint as
+     ``DeepGlobalRegistration``'s weights, and 4 FCGF hardest-contrastive
+     steps;
+ 14. print one JSON line describing every kernel, the card's line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 Each path (4-7, 9, 10, 11's default configuration and .pth runs, 12's
-demo, 3DMatch loop, KITTI ground truth and KITTI loop) is driven with the kernels' launch counts set to 0 just
+demo, 3DMatch loop, KITTI ground truth and KITTI loop, 13's train step and
+``train.main``) is driven with the kernels' launch counts set to 0 just
 before it and read just after; launches made to compare a kernel with its
 plain version are not counted. Imports nothing of JAX. Exits non-zero when
 no CUDA device is visible.
@@ -1654,6 +1663,319 @@ def phase_eval(knn, bench_pairs, bench_Ts) -> dict:
     return out
 
 
+# The training phase (13): the bench configuration trained as the JAX
+# package's trainer does (bench.py:44-50; SGD at the config's defaults).
+TRAIN = dict(BENCH, dataset="SyntheticPairDataset", synthetic_points=30000,
+             batch_size=4)
+TRAIN_SMALL = dict(synthetic_points=4000, batch_size=2)  # the card-vs-CPU step
+# Card against CPU, one step from the same parameters on the same 1-NN
+# indices (the card's): atomic index_add_ on the card reorders the convs'
+# sums. Loss, logits and BN statistics: the largest gap over the largest
+# |value| of the tensor; gradients and updated parameters: over the largest
+# |value| of any leaf, since a leaf whose gradient cancels to near zero (a
+# BN bias feeding a train-mode BN) has no scale of its own; each leaf's own
+# relative gap is printed. Measured (NVIDIA H100 80GB HBM3, 700 W; 2 pairs
+# of ~3k voxels; five runs): loss 7.7e-8 to 2.3e-7, logits 5.3e-7 to
+# 6.0e-7, BN statistics 5.7e-6 to 5.8e-6, gradients 8.3e-7 and parameters
+# 1.2e-7 of the largest leaf; one leaf's own gap 6.5e-6 to 1.7e-3 between
+# runs (block3.norm1.bias).
+TRAIN_CARD_CPU_TOL = {"loss": 1e-5, "logits": 1e-5, "grads": 1e-4, "params": 1e-4,
+                      "bn_state": 5e-5}
+FCGF_TRAIN_LR = 0.01  # fine-tuning the committed weights
+
+
+def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _train_card_vs_cpu() -> dict:
+    """One train step on the card and on the CPU from the same parameters,
+    2 pairs at 4000 points, the CPU fed the card's 1-NN indices; returns
+    each quantity's largest gap relative to its largest |value|."""
+    import tempfile
+
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core import train_step as ts
+    from deepglobalregistration_tpu_torch.core.trainer import WeightedProcrustesTrainer
+    from deepglobalregistration_tpu_torch.data.factory import make_data_loader
+
+    steps, nets = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for side, dev in (("card", "cuda"), ("host", "cpu")):
+            config = default_config(**dict(TRAIN, **TRAIN_SMALL), device=dev,
+                                    out_dir=f"{tmp}/{side}", test_valid=False)
+            loader = make_data_loader(config, "train", config.batch_size)
+            nets[side] = WeightedProcrustesTrainer(config, loader)
+    batch = next(iter(loader))["pair_batch"]
+    t0 = time.perf_counter()
+    card = nets["card"].step_fn(ts.batch_to(batch, "cuda"))
+    torch.cuda.synchronize()
+    steps["card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = nets["host"].step_fn(ts.batch_to(batch, "cpu"), card["nn_idx"].cpu())
+    steps["host_s"] = time.perf_counter() - t0
+    if not torch.equal(card["nn_idx"].cpu(), host["nn_idx"]):
+        fail("train card vs CPU: the CPU step did not take the card's 1-NN indices")
+    valid = card["valid"].cpu()
+    gaps = {"loss": _rel_gap(card["loss"], host["loss"]),
+            "logits": _rel_gap(card["logits"].cpu()[valid], host["logits"][valid])}
+    pc = dict(nets["card"].inlier.named_parameters())
+    ph = dict(nets["host"].inlier.named_parameters())
+    for key, get in (("grads", lambda p: p.grad), ("params", lambda p: p)):
+        diff = max(float((get(pc[k]).detach().cpu() - get(ph[k]).detach()).abs().max())
+                   for k in pc)
+        gaps[key] = diff / max(float(get(ph[k]).detach().abs().max()) for k in ph)
+    bc = dict(nets["card"].inlier.named_buffers())
+    bh = dict(nets["host"].inlier.named_buffers())
+    gaps["bn_state"] = max(_rel_gap(bc[k], bh[k]) for k in bc)
+    worst_grad = max(pc, key=lambda k: _rel_gap(pc[k].grad, ph[k].grad))
+    worst = {"leaf": worst_grad, "gap_of_leaf_max": _rel_gap(pc[worst_grad].grad,
+                                                            ph[worst_grad].grad),
+             "leaf_max": float(ph[worst_grad].grad.abs().max())}
+    r = {"pairs": int(batch.num0.shape[0]), "num0": batch.num0.tolist(),
+         "num1": batch.num1.tolist(), "gaps": gaps, "worst_grad_leaf": worst,
+         "tolerances": TRAIN_CARD_CPU_TOL, **steps,
+         "labels_equal": bool(torch.equal(card["labels"].cpu(), host["labels"]))}
+    print(json.dumps({"train_card_vs_cpu": r}), flush=True)
+    if not r["labels_equal"]:
+        fail("train card vs CPU: the labels differ on the same 1-NN indices")
+    for k, tol in TRAIN_CARD_CPU_TOL.items():
+        if not gaps[k] <= tol:
+            fail(f"train card vs CPU: {k} gap {gaps[k]:.3e} over {tol}")
+    return r
+
+
+def phase_train(knn) -> dict:
+    """Training on the card (the slice of core/train_step.py, core/trainer.py,
+    train.py and core/fcgf_train.py) at the bench configuration, full width:
+    FCGF ResUNetBN2C conv1 = 7 / 32-dim from the committed weights (frozen),
+    the 6D ResUNetBN2C conv1 = 3 inlier net from a seeded generator, SGD at
+    the config's defaults, SyntheticPairDataset at 30000 points and 5 cm,
+    batch 4:
+    (a) 8 steps on one batch: finite loss, finite gradients, the last loss
+        below the first;
+    (b) one step with the launch counts set to 0 just before and read just
+        after: nn1_mma_batched exactly once, nothing else; that launch's
+        indices equal the kernel's on the step's features, held to the plain
+        version (check_nn1_batched) and timed (time_nn1_batched);
+    (c) stage split, s/step (median of 5 after a warm-up), peak memory a step
+        with and without --remat, and the device busy share of one step;
+    (d) one step on the card against the CPU (_train_card_vs_cpu);
+    (e) train.main: 1 epoch of 3 steps with validation, f32 uncompressed
+        checkpoints; the scalar tags and checkpoint.pkl; --resume_dir
+        restores the epoch and the inlier net bit for bit; the checkpoint
+        as DeepGlobalRegistration's weights: a trained inlier net and a
+        finite pose on bench pair 0;
+    (f) 4 hardest-contrastive FCGF steps (core/fcgf_train.py) at full width
+        in train-mode BN on the batch, fixed draws: finite, falling loss."""
+    import dataclasses
+    import tempfile
+
+    from deepglobalregistration_tpu_torch import train
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core import fcgf_train as ft
+    from deepglobalregistration_tpu_torch.core import train_step as ts
+    from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
+    from deepglobalregistration_tpu_torch.core.trainer import WeightedProcrustesTrainer
+    from deepglobalregistration_tpu_torch.data.factory import make_data_loader
+    from deepglobalregistration_tpu_torch.models import load_model
+    from deepglobalregistration_tpu_torch.utils import checkpoint, convert
+    from deepglobalregistration_tpu_torch.utils.synthetic import synthetic_pair
+    from deepglobalregistration_tpu_torch.utils.timer import Timer
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    config = default_config(**TRAIN, device="cuda", out_dir=f"{tmp.name}/a",
+                            test_valid=False)
+    loader = make_data_loader(config, "train", config.batch_size)
+    t0 = time.time()
+    trainer = WeightedProcrustesTrainer(config, loader)
+    host_batch = next(iter(loader))["pair_batch"]
+    batch = ts.batch_to(host_batch, "cuda")
+    print(f"train: trainer {time.time() - t0:.3f} s; voxels per cloud num0 "
+          f"{host_batch.num0.tolist()} num1 {host_batch.num1.tolist()}, bucket "
+          f"{host_batch.xyz0.shape[1]}, positives {host_batch.pos_num.tolist()}",
+          flush=True)
+
+    # (a) a fixed batch, 8 steps
+    losses, finite = [], []
+    for _ in range(8):
+        stats = trainer.step_fn(batch)
+        losses.append(float(stats["loss"]))
+        finite.append(stats["grad_finite"])
+    print(json.dumps({"train_fixed_batch": {
+        "loss": losses, "grad_finite": finite,
+        "valid_pairs": int(stats["valid_pairs"])}}), flush=True)
+    if not (all(finite) and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"train: 8 steps on one batch gave losses {losses}, finite grads {finite}")
+    out["losses"] = losses
+
+    # (b) the kernel on this path
+    torch.cuda.synchronize()
+    reset_counts(knn)
+    stats = trainer.step_fn(batch)
+    torch.cuda.synchronize()
+    launches = counts(knn)
+    print(json.dumps({"train_step_launches": launches}), flush=True)
+    if launches["nn1_mma_batched"] != 1 or launches["total"] or \
+            launches["nn1_scan_batched"]:
+        fail(f"train: a step launched {launches}, expected nn1_mma_batched once")
+    out["launches"] = launches
+    with torch.no_grad():
+        feats = ts.fcgf_features(trainer.fcgf, batch)
+    b = host_batch.num0.shape[0]
+    F0, F1 = feats[:b].contiguous(), feats[b:].contiguous()
+    num0, num1 = host_batch.num0.tolist(), host_batch.num1.tolist()
+    idx, _ = knn.nn1_mma_batched(F0, F1, knn.pair_counts(num0, num1, "cuda"))
+    if not torch.equal(idx.long(), stats["nn_idx"]):
+        fail("train: the step's 1-NN indices differ from the kernel's on its features")
+    out["max_abs_err"] = check_nn1_batched(knn, F0, F1, num0, num1,
+                                           "train match")["max_abs_err"]
+    out["num0"], out["num1"] = num0, num1
+    out["timing"] = time_nn1_batched(knn, F0, F1, num0, num1, "train match")
+    del feats, F0, F1
+
+    # (c) numbers: stage split, s/step, peak memory, busy share
+    stages = ("fcgf", "match", "plan6", "inlier", "loss", "backward", "optimizer")
+
+    class StageTimer(Timer):
+        """A stage's time and the peak memory allocated inside it."""
+
+        peak_gib = 0.0
+
+        def tic(self):
+            torch.cuda.reset_peak_memory_stats()
+            super().tic()
+
+        def toc(self, average: bool = True):
+            self.peak_gib = max(self.peak_gib,
+                                torch.cuda.max_memory_allocated() / 2 ** 30)
+            return super().toc(average)
+
+    timers = {k: StageTimer() for k in stages}
+    timed, _ = ts.make_train_step(trainer.fcgf, trainer.inlier, config,
+                                  trainer.optimizer, timers)
+    ms_step, _ = _median_ms(lambda: trainer.step_fn(batch), 5)
+    timed(batch)
+    for t in timers.values():
+        t.reset()
+    for _ in range(5):
+        timed(batch)
+    peak = {}
+    for remat in (False, True):
+        step, _ = ts.make_train_step(trainer.fcgf, trainer.inlier,
+                                     dataclasses.replace(config, remat=remat),
+                                     trainer.optimizer)
+        step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch)
+        torch.cuda.synchronize()
+        peak["remat" if remat else "plain"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["step"] = {"s_per_step_median": ms_step / 1e3,
+                   "stage_s_mean": {k: timers[k].avg for k in stages},
+                   "stage_peak_gib": {k: timers[k].peak_gib for k in stages},
+                   "peak_gib": peak, "card": card_line()}
+    print(json.dumps({"train_step": out["step"]}), flush=True)
+    busy = profile_busy(lambda: trainer.step_fn(batch), ms_step / 1e3)
+    if busy is not None:
+        print(json.dumps({"train_step_profile": busy}), flush=True)
+    out["busy"] = busy
+    del trainer, timed, step
+    torch.cuda.empty_cache()
+
+    # (d) card against CPU
+    out["card_vs_cpu"] = _train_card_vs_cpu()
+
+    # (e) the trainer end to end, resume, and the checkpoint as weights
+    run = Path(tmp.name) / "run"
+    argv = [a for k, v in dict(TRAIN, out_dir=str(run)).items()
+            for a in (f"--{k}", str(v))]
+    argv += ["--device", "cuda", "--max_epoch", "1", "--num_train_iter", "3",
+             "--test_valid", "true",
+             "--val_max_iter", "2", "--stat_freq", "1", "--ckpt_dtype", "f32",
+             "--ckpt_compress", "false"]
+    reset_counts(knn)
+    t0 = time.time()
+    first = train.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    main_launches = counts(knn)
+    tags = {json.loads(line)["tag"] for line in (run / "scalars.jsonl").open()}
+    want = {"train/loss", "train/f1", "train/hit_ratio", "val/succ_rate", "val/rte",
+            "val/rre", "val/hit_ratio"}
+    if not want <= tags or not (run / "checkpoint.pkl").exists():
+        fail(f"train.main: tags {sorted(tags)}, checkpoint "
+             f"{(run / 'checkpoint.pkl').exists()}")
+    t0 = time.time()
+    resumed = train.main(["--resume_dir", str(run)])
+    resume_s = time.time() - t0
+    pa, pb = convert.to_jax_params(first.inlier), convert.to_jax_params(resumed.inlier)
+    same = all(np.array_equal(a, b) for i in (0, 1)
+               for a, b in zip(_tree_leaves(pa[i]), _tree_leaves(pb[i])))
+    if resumed.start_epoch != 1 or not same:
+        fail(f"train.main resume: start_epoch {resumed.start_epoch}, inlier net bit "
+             f"for bit {same}")
+    del first, resumed
+    torch.cuda.empty_cache()
+    dgr = DeepGlobalRegistration(default_config(
+        **dict(BENCH, weights=str(run / "checkpoint.pkl"))), device="cuda")
+    xyz0, xyz1, T_gt = synthetic_pair(n=30000, seed=0)
+    T = dgr.register(xyz0, xyz1)
+    rre, rte = pose_errors(T, T_gt)
+    out["trainer"] = {"main_s": main_s, "resume_s": resume_s,
+                      "launches": main_launches,
+                      "checkpoint_mib": (run / "checkpoint.pkl").stat().st_size / 2 ** 20,
+                      "inlier_trained": dgr.inlier_trained, "register_rre_deg": rre,
+                      "register_rte_m": rte, "branch": dgr.last_branch}
+    print(json.dumps({"train_main": out["trainer"]}), flush=True)
+    if not dgr.inlier_trained or not np.isfinite(T).all():
+        fail(f"train: the checkpoint as weights: inlier_trained "
+             f"{dgr.inlier_trained}, pose finite {np.isfinite(T).all()}")
+    del dgr
+
+    # (f) the FCGF hardest-contrastive step, full width, train-mode BN
+    spec = load_model(config.feat_model)
+    fcfg = spec.make_config(1, config.feat_model_n_out,
+                            conv1_kernel_size=config.feat_conv1_kernel_size,
+                            normalize_feature=True, D=3, bn_momentum=config.bn_momentum)
+    sd = checkpoint.load_checkpoint(WEIGHTS)["state_dict"]
+    fnet = spec.module(fcfg)
+    fnet.load_state_dict(convert.from_jax_params(sd["params"], sd["state"], fcfg))
+    fnet.to("cuda").train()
+    fopt = ts.make_optimizer("SGD", fnet.parameters(),
+                             dataclasses.replace(config, lr=FCGF_TRAIN_LR))
+    lcfg = ft.FCGFLossConfig()
+    fstep, _ = ft.make_fcgf_train_step(fnet, lcfg, fopt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draws = [ft.draw_indices(gen, host_batch.pos_num[i], host_batch.num0[i],
+                             host_batch.num1[i], lcfg) for i in range(b)]
+    flosses, ffinite = [], []
+    t0 = time.time()
+    for _ in range(4):
+        st = fstep(batch, draws)
+        flosses.append(float(st["loss"]))
+        ffinite.append(st["grad_finite"])
+    torch.cuda.synchronize()
+    out["fcgf"] = {"loss": flosses, "grad_finite": ffinite, "lr": FCGF_TRAIN_LR,
+                   "s_per_step": (time.time() - t0) / 4}
+    print(json.dumps({"train_fcgf": out["fcgf"]}), flush=True)
+    if not (all(ffinite) and np.isfinite(flosses).all() and flosses[-1] < flosses[0]):
+        fail(f"train: FCGF steps gave losses {flosses}, finite grads {ffinite}")
+    tmp.cleanup()
+    return out
+
+
+def _tree_leaves(tree):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _tree_leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
@@ -1681,6 +2003,7 @@ def main() -> int:
     batch_kitti = phase_batch_kitti(knn)
     models = phase_models(knn)
     ev = phase_eval(knn, e["pairs"], e["Ts"])
+    tr = phase_train(knn)
     feat, scan = e["timings"]
     kfeat, kscan = kitti["timings"]
     dfeat, dscan = models["default_timings"]
@@ -1739,6 +2062,15 @@ def main() -> int:
             k = batch_kitti["timing"]
             entry.update({f"{key}_kitti": k[key] for key in (
                 "ms", "unbatched_sum_ms", "plain_ms", "library_ms", "bound_ms")})
+            t = tr["timing"]  # the train step's feature match
+            entry.update({f"{key}_train": t[key] for key in (
+                "ms", "unbatched_sum_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "shape")})
+            entry["bound_f32_ms_train"], _ = nn1_bound_ms(
+                tr["num0"], tr["num1"], 32)
+            entry["launches_train"] = tr["launches"][name]
+            entry["launches_train_main"] = tr["trainer"]["launches"][name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], tr["max_abs_err"])
         entries.append(entry)
     print(json.dumps({"kernels": entries + gather_entries}), flush=True)
     print(card, flush=True)

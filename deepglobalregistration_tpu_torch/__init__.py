@@ -3,20 +3,24 @@
 A port of the JAX package ``deepglobalregistration_tpu`` (kept beside it as
 the reference). Module names mirror the JAX package so each counterpart is
 easy to find: ``ops/`` (geometry, grids, kernel maps, sparse convolution,
-1-NN, registration metrics), ``models/`` (every model of the JAX registry behind ``load_model``:
-ResUNet, SimpleNet, PyramidNet), ``core/`` (refinement loop and the
+1-NN, registration metrics, the training losses), ``models/`` (every model
+of the JAX registry behind ``load_model``: ResUNet, SimpleNet, PyramidNet;
+trainable, BN in train or eval mode), ``core/`` (refinement loop and the
 ``DeepGlobalRegistration`` pipeline, with ``register_batch``'s batched
-program), ``utils/`` (device policy, checkpoint loading of the reference's
-``.pth`` files and the JAX package's native ones, weight conversion, BN
-folding, PLY and trajectory I/O, timers),
+program; the train step, the trainer, correspondence labels and the FCGF
+hardest-contrastive step), ``utils/`` (device policy, checkpoint loading
+of the reference's ``.pth`` files and loading and writing the JAX
+package's native ones, weight conversion both ways, BN folding, PLY and
+trajectory I/O, timers),
 ``tools/`` (the gather probe, ``register_batch`` against ``register_many``),
 ``data/`` (the 3DMatch, KITTI and synthetic pair datasets, collation into
 ``PairBatch`` and the loader factory; the KITTI ground-truth ICP runs on the
 card), ``native.py`` (the ctypes binding of the repo's ``native/dgr_host.cpp``
 host engine, built with ``g++`` into ``_build/``), ``config.py`` (every flag of
 the JAX package's parser, plus ``--device``), and the evaluation entry points
-``demo.py``, ``scripts/test_3dmatch.py`` and ``scripts/test_kitti.py`` (each
-``main(argv=None)``, on the card unless ``--device cpu``).
+``demo.py``, ``scripts/test_3dmatch.py`` and ``scripts/test_kitti.py`` and
+the training entry point ``train.py`` (each ``main(argv=None)``, on the card
+unless ``--device cpu``).
 
 The 1-NN searches run through two hand-written CUDA kernels, chosen by the
 rows' width: the ICP's xyz scan through a register-tiled CUDA-core scan

@@ -10,7 +10,7 @@ the JAX package's ``utils/platform.select_platform``.
 
 ``Config`` is a dataclass with one field a flag, made from the parser, so the
 two cannot drift apart. Flags that no port module reads yet are accepted and
-stored; the comment at each says which later slice reads them.
+stored; the comment at each group says which modules read its flags.
 """
 
 from __future__ import annotations
@@ -32,8 +32,10 @@ logging_arg.add_argument("--out_dir", type=str, default="outputs")
 
 # Trainer and Optimizer groups: data/ reads the augmentation flags
 # (use_random_*, min/max_scale, rotation_range, the positive-pair
-# multiplier) and icp_cache_path, register() clip_weight_thresh; the rest,
-# ckpt_* included, is read by the training slice, not ported yet.
+# multiplier) and icp_cache_path, register() and the train step
+# clip_weight_thresh; core/trainer.py and core/train_step.py the rest,
+# ckpt_* included, except save_epoch_freq, eval_registration, momentum and
+# scheduler, which neither package's trainer reads.
 trainer_arg = parser.add_argument_group("Trainer")
 trainer_arg.add_argument("--trainer", type=str, default="WeightedProcrustesTrainer")
 trainer_arg.add_argument("--batch_size", type=int, default=4)
@@ -108,8 +110,8 @@ opt_arg.add_argument("--num_train_iter", type=int, default=-1)
 opt_arg.add_argument("--icp_cache_path", type=str, default="icp")
 
 # Misc: weights and test_num_workers are read here; resume*, train/val
-# workers and fast_validation by the training slice; use_gpu, weights_dir
-# and nn_max_n by nothing (--device replaces use_gpu).
+# workers by train.py and the trainer; fast_validation, use_gpu,
+# weights_dir and nn_max_n by nothing (--device replaces use_gpu).
 misc_arg = parser.add_argument_group("Misc")
 misc_arg.add_argument("--use_gpu", type=str2bool, default=True)  # kept for CLI parity
 misc_arg.add_argument("--weights", type=str, default=None)
@@ -134,8 +136,7 @@ data_arg.add_argument("--synthetic_points", type=int, default=20000,
                       help="points per procedural cloud (SyntheticPairDataset)")
 
 # kitti_date, hit_ratio_thresh and test_random_*: read by no module of
-# either package's evaluation; hit_ratio_thresh by the training slice's
-# validation.
+# either package (the trainers' validation reads the success thresholds).
 eval_arg = parser.add_argument_group("Eval")
 eval_arg.add_argument("--hit_ratio_thresh", type=float, default=0.1)
 eval_arg.add_argument("--success_rte_thresh", type=float, default=0.3)
@@ -148,8 +149,9 @@ demo_arg.add_argument("--pcd0", default="redkitchen_000.ply", type=str)
 demo_arg.add_argument("--pcd1", default="redkitchen_010.ply", type=str)
 
 # TPU group: register() reads point_buckets, ransac_hypotheses,
-# level_shrink*, fold_bn, bf16, dense_extent and icp_candidates. remat is
-# the training slice's, num_devices parallel/'s; edge_budget_scale sizes
+# level_shrink*, fold_bn, bf16, dense_extent and icp_candidates. The train
+# step reads remat; num_devices > 1 is parallel/'s (the trainer raises);
+# edge_budget_scale sizes
 # the JAX package's fixed 6D edge budgets, which the port's exact maps do
 # not have.
 tpu_arg = parser.add_argument_group("TPU")

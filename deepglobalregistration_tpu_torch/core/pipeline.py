@@ -69,8 +69,8 @@ def _bucket_for(n: int, buckets) -> int:
 def build_net(spec, tree, cfg, fold_bn: bool, dtype: torch.dtype,
               device: torch.device):
     """The registry model ``spec`` with the (params, state) ``tree`` on
-    ``device`` in eval mode: BN folded if ``fold_bn``, weights rounded to
-    ``dtype`` (kept in f32 storage)."""
+    ``device`` in eval mode with frozen parameters: BN folded if
+    ``fold_bn``, weights rounded to ``dtype`` (kept in f32 storage)."""
     params, state = tree
     if fold_bn:
         params, state, cfg = fold_batch_norms(params, state, cfg)
@@ -78,7 +78,7 @@ def build_net(spec, tree, cfg, fold_bn: bool, dtype: torch.dtype,
     net.load_state_dict(convert.from_jax_params(params, state, cfg))
     if dtype != torch.float32:
         net.round_weights(dtype)
-    return net.to(device).eval()
+    return net.to(device).eval().requires_grad_(False)
 
 
 def _get(cfg, key, default=None):

@@ -26,17 +26,19 @@ dataset_str_mapping = {d.__name__: d for d in ALL_DATASETS}
 
 
 class InfSampler(torch.utils.data.Sampler):
-    """Infinite shuffled permutation sampler (inf_sampler.py:11-38)."""
+    """Infinite shuffled permutation sampler (inf_sampler.py:11-38); the
+    permutations come from its own generator, seeded with 0."""
 
     def __init__(self, data_source, shuffle: bool = False):
         self.data_source = data_source
         self.shuffle = shuffle
+        self.generator = torch.Generator().manual_seed(0)
         self.reset_permutation()
 
     def reset_permutation(self):
         perm = len(self.data_source)
         if self.shuffle:
-            perm = torch.randperm(perm)
+            perm = torch.randperm(perm, generator=self.generator)
         else:
             perm = torch.arange(perm)
         self._perm = perm.tolist()

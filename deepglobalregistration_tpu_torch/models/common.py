@@ -5,6 +5,12 @@ MinkowskiEngine's state_dict (``conv.kernel`` [K, Cin, Cout], ``conv.bias``,
 ``norm.weight``/``norm.bias`` with running statistics ``norm.mean``/
 ``norm.var``), so the JAX package's trees convert by flattening
 (``utils/convert.py``).
+
+The modules follow PyTorch's conventions: parameters are trainable and a
+norm reads ``nn.Module.training`` (batch statistics in train mode, running
+statistics in eval mode; the JAX package's ``apply_norm(train=...)``).
+Inference runs eval-mode nets under ``torch.no_grad()``
+(``core/pipeline.build_net`` also freezes their parameters).
 """
 
 from __future__ import annotations
@@ -23,7 +29,14 @@ NORM_TYPES = ("BN", "IN", "INBN", "NONE")
 
 
 class Net(nn.Module):
-    """Base of the model families: ``cfg`` and the weight rounding."""
+    """Base of the model families: ``cfg``, the norms' momentum and the
+    weight rounding."""
+
+    def set_bn_momentum(self, momentum: float) -> None:
+        """The running-statistics momentum of every norm (``cfg.bn_momentum``)."""
+        for m in self.modules():
+            if isinstance(m, Norm):
+                m.momentum = float(momentum)
 
     def round_weights(self, dtype: torch.dtype) -> None:
         """Round every weight to ``dtype`` (kept in f32 storage): the convs
@@ -38,9 +51,8 @@ class Conv(nn.Module):
 
     def __init__(self, k: int, cin: int, cout: int, bias: bool = False):
         super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(k, cin, cout), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False) \
-            if bias else None
+        self.kernel = nn.Parameter(torch.zeros(k, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, feats: torch.Tensor, em: EdgeMap | None) -> torch.Tensor:
         """em None = kernel size 1 on the input's own grid."""
@@ -58,9 +70,11 @@ def first_conv(conv: Conv, plan, feats: torch.Tensor) -> torch.Tensor:
 
 
 class Norm(nn.Module):
-    """Inference norm: 'BN' (running statistics), 'IN' (per cloud, no
-    parameters), 'INBN' (IN then BN) or 'NONE' (a BN folded into the conv
-    before it). ``seg`` = (cloud index of each row, clouds), for IN."""
+    """'BN', 'IN' (per cloud, no parameters), 'INBN' (IN then BN) or 'NONE'
+    (a BN folded into the conv before it). ``seg`` = (cloud index of each
+    row, clouds), for IN. BN in train mode normalises with the statistics
+    of every row of the batch (all clouds, MinkowskiEngine's semantics) and
+    updates ``mean``/``var`` with ``momentum``; in eval mode it reads them."""
 
     def __init__(self, norm_type: str, c: int):
         super().__init__()
@@ -68,16 +82,23 @@ class Norm(nn.Module):
             raise ValueError(f"norm type {norm_type} not defined")
         self.instance = norm_type in ("IN", "INBN")
         self.batch = norm_type in ("BN", "INBN")
+        self.momentum = 0.1  # Net.set_bn_momentum sets cfg.bn_momentum
         if self.batch:
-            self.weight = nn.Parameter(torch.ones(c), requires_grad=False)
-            self.bias = nn.Parameter(torch.zeros(c), requires_grad=False)
+            self.weight = nn.Parameter(torch.ones(c))
+            self.bias = nn.Parameter(torch.zeros(c))
             self.register_buffer("mean", torch.zeros(c))
             self.register_buffer("var", torch.ones(c))
 
     def forward(self, feats: torch.Tensor, seg) -> torch.Tensor:
         if self.instance:
             feats = sc.instance_norm(feats, *seg)
-        if self.batch:
+        if self.batch and self.training:
+            feats, mean, var = sc.batch_norm_train(
+                feats, self.weight, self.bias, self.mean, self.var, self.momentum)
+            with torch.no_grad():
+                self.mean.copy_(mean)
+                self.var.copy_(var)
+        elif self.batch:
             feats = sc.batch_norm_infer(feats, self.weight, self.bias, self.mean,
                                         self.var)
         return feats

@@ -38,6 +38,7 @@ class PyramidNetConfig:
     conv1_kernel_size: int = 3
     normalize_feature: bool = False
     D: int = 3
+    bn_momentum: float = 0.1  # running statistics (train-mode BN)
     region_type: int = kernel_map.HYPER_CUBE
     nonlinearity: str = "ELU"
 
@@ -67,13 +68,14 @@ _VARIANTS = {
 
 def make_config(name: str, in_channels: int, out_channels: int,
                 conv1_kernel_size: int = 3, normalize_feature: bool = False,
-                D: int = 3) -> PyramidNetConfig:
+                D: int = 3, bn_momentum: float = 0.1) -> PyramidNetConfig:
     if name not in _VARIANTS:
         raise ValueError(f"unknown PyramidNet variant {name}")
     return PyramidNetConfig(name=name, in_channels=in_channels,
                             out_channels=out_channels,
                             conv1_kernel_size=conv1_kernel_size,
                             normalize_feature=normalize_feature, D=D,
+                            bn_momentum=bn_momentum,
                             **_VARIANTS[name])
 
 
@@ -131,8 +133,8 @@ class PyramidNet(common.Net):
         self.pyramid = PyramidModule(cfg, 0)
         self.final = nn.Sequential(_cnn(_kvol(cfg, 3), TR[0], TR[0], nt),
                           common.Conv(1, TR[0], cfg.out_channels))
+        self.set_bn_momentum(cfg.bn_momentum)
 
-    @torch.no_grad()
     def forward(self, plan: UNetPlan, feats: torch.Tensor) -> torch.Tensor:
         """feats [N_0, Cin] in the compute dtype -> [N_0, out_channels]."""
         f, seg = self.cfg.nonlinearity, plan.seg(0)

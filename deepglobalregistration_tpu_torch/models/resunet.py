@@ -47,6 +47,7 @@ class ResUNetConfig:
     conv1_kernel_size: int = 3
     normalize_feature: bool = False
     D: int = 3
+    bn_momentum: float = 0.1  # running statistics (train-mode BN)
 
     @property
     def levels(self) -> int:
@@ -115,13 +116,14 @@ _VARIANTS["ResUNetBN2FX"] = dict(_VARIANTS["ResUNetBN2F"],
 
 def make_config(name: str, in_channels: int, out_channels: int,
                 conv1_kernel_size: int = 3, normalize_feature: bool = False,
-                D: int = 3) -> ResUNetConfig:
+                D: int = 3, bn_momentum: float = 0.1) -> ResUNetConfig:
     if name not in _VARIANTS:
         raise ValueError(f"unknown ResUNet variant {name}")
     return ResUNetConfig(name=name, in_channels=in_channels,
                          out_channels=out_channels,
                          conv1_kernel_size=conv1_kernel_size,
                          normalize_feature=normalize_feature, D=D,
+                         bn_momentum=bn_momentum,
                          **_VARIANTS[name])
 
 
@@ -175,8 +177,8 @@ class ResUNet(common.Net):
             self.add_module(f"block{sfx}", block)
         self.conv1_tr = common.Conv(1, C[1] + TR[2], TR[1])
         self.final = common.Conv(1, TR[1], cfg.out_channels, bias=True)
+        self.set_bn_momentum(cfg.bn_momentum)
 
-    @torch.no_grad()
     def forward(self, plan: UNetPlan, feats: torch.Tensor) -> torch.Tensor:
         """feats [N_0, Cin] in the compute dtype -> [N_0, out_channels]."""
         L, fam = self.cfg.levels, self.cfg.family

@@ -35,6 +35,7 @@ class SimpleNetConfig:
     conv1_kernel_size: int = 3
     normalize_feature: bool = False
     D: int = 3
+    bn_momentum: float = 0.1  # running statistics (train-mode BN)
     region_type: int = kernel_map.HYPER_CUBE
 
     @property
@@ -84,13 +85,14 @@ _VARIANTS = {
 
 def make_config(name: str, in_channels: int, out_channels: int,
                 conv1_kernel_size: int = 3, normalize_feature: bool = False,
-                D: int = 3) -> SimpleNetConfig:
+                D: int = 3, bn_momentum: float = 0.1) -> SimpleNetConfig:
     if name not in _VARIANTS:
         raise ValueError(f"unknown SimpleNet variant {name}")
     return SimpleNetConfig(name=name, in_channels=in_channels,
                            out_channels=out_channels,
                            conv1_kernel_size=conv1_kernel_size,
                            normalize_feature=normalize_feature, D=D,
+                           bn_momentum=bn_momentum,
                            **_VARIANTS[name])
 
 
@@ -120,8 +122,8 @@ class SimpleNet(common.Net):
             self.add_module(name.replace("conv", "norm"),
                             common.Norm(cfg.norm_type, cout))
         self.final = common.Conv(1, cfg.tr_channels[1], cfg.out_channels, bias=True)
+        self.set_bn_momentum(cfg.bn_momentum)
 
-    @torch.no_grad()
     def forward(self, plan: UNetPlan, feats: torch.Tensor) -> torch.Tensor:
         """feats [N_0, Cin] in the compute dtype -> [N_0, out_channels]."""
         L = self.cfg.levels

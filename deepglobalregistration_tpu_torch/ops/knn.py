@@ -285,3 +285,28 @@ def find_knn_cpu(feat0, feat1, knn: int = 1, return_distance: bool = False):
     if return_distance:
         return nn_inds, dists
     return nn_inds
+
+
+def find_knn_batched(F0: torch.Tensor, F1: torch.Tensor, num0, num1, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest F1 rows (squared L2, ascending) of each F0 row, per pair:
+    F0 [B, N0, C], F1 [B, N1, C], counts [B]. Returns (idx [B, N0, k] int64,
+    d2 [B, N0, k] f32); candidates past ``num1[b]`` are never picked while
+    the pair has k. The JAX package's ``knn.find_knn`` under ``vmap``
+    (``inlier_knn > 1``), which is XLA there: here ``torch.topk`` over f32
+    distance tiles of ``_TILE`` queries, on the tensors' device."""
+    F0, F1 = F0.float(), F1.float()
+    b, n0 = F0.shape[:2]
+    sq1 = (F1 * F1).sum(-1)
+    col = torch.arange(F1.shape[1], device=F1.device)
+    n1 = torch.as_tensor(num1, device=F1.device).reshape(b, 1, 1)
+    idx = torch.zeros((b, n0, k), dtype=torch.int64, device=F0.device)
+    d2 = torch.zeros((b, n0, k), dtype=torch.float32, device=F0.device)
+    for s in range(0, n0, _TILE):
+        f0 = F0[:, s:s + _TILE]
+        d = (f0 * f0).sum(-1, keepdim=True) - 2.0 * torch.bmm(f0, F1.transpose(1, 2)) \
+            + sq1[:, None, :]
+        d = torch.where(col < n1, d, torch.full_like(d, float("inf")))
+        d2[:, s:s + _TILE], idx[:, s:s + _TILE] = torch.topk(d, k, dim=-1,
+                                                             largest=False)
+    return idx, d2

@@ -1,9 +1,47 @@
-"""High-dimensional smooth-L1 loss of the refinement loop (the JAX package's
-``ops/losses.py:high_dim_smooth_l1``; reference core/loss.py:42-61)."""
+"""Losses: the inlier BCE (plain and class-balanced) and the high-dimensional
+smooth-L1 of the refinement loop.
+
+Counterpart of the JAX package's ``ops/losses.py`` (reference core/loss.py:
+13-61), with validity masks for padded rows.
+"""
 
 from __future__ import annotations
 
 import torch
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary cross-entropy with logits, in the stable form
+    ``max(x, 0) - x y + log1p(exp(-|x|))``."""
+    return torch.clamp(logits, min=0) - logits * labels \
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+
+
+def unbalanced_loss(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked-mean BCE (core/loss.py:13-21 UnbalancedLoss)."""
+    per = bce_with_logits(logits, labels.float())
+    if mask is None:
+        return per.mean()
+    m = mask.float()
+    return torch.sum(per * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def balanced_loss(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Class-balanced BCE: the mean within each class, each present class
+    weighted 1/2; an absent class contributes 0 (core/loss.py:24-39
+    BalancedLoss skips it)."""
+    labels = labels.float()
+    per = bce_with_logits(logits, labels)
+    m = torch.ones_like(per) if mask is None else mask.float()
+    total = per.new_zeros(())
+    for cls in (0.0, 1.0):
+        sel = m * (labels == cls)
+        cnt = torch.sum(sel)
+        mean = torch.sum(per * sel) / torch.clamp(cnt, min=1.0)
+        total = total + torch.where(cnt > 0, mean, torch.zeros_like(mean)) / 2.0
+    return total
 
 
 def high_dim_smooth_l1(X: torch.Tensor, Y: torch.Tensor, weights: torch.Tensor,

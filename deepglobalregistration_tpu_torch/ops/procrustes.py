@@ -14,12 +14,16 @@ import torch
 
 
 def _fix_det_svd(Sxy: torch.Tensor) -> torch.Tensor:
-    """R = U diag(1, 1, det(U) det(V)) V^T for a batch of 3x3 matrices."""
-    U, _, Vt = torch.linalg.svd(Sxy.float())
+    """R = U diag(1, 1, det(U) det(V)) V^T for a batch of 3x3 matrices. A
+    matrix with a non-finite entry gives itself back (NaN in, NaN out, and
+    in its gradient, as JAX's SVD), where ``torch.linalg.svd`` would raise."""
+    Sxy = Sxy.float()
+    finite = torch.isfinite(Sxy).all(-1, keepdim=True).all(-2, keepdim=True)
+    U, _, Vt = torch.linalg.svd(torch.where(finite, Sxy, torch.zeros_like(Sxy)))
     det = torch.linalg.det(U) * torch.linalg.det(Vt)
     D = torch.ones(Sxy.shape[:-1], dtype=torch.float32, device=Sxy.device)
     D[..., 2] = det
-    return torch.matmul(U * D[..., None, :], Vt)
+    return torch.where(finite, torch.matmul(U * D[..., None, :], Vt), Sxy)
 
 
 def _polar_polish(R: torch.Tensor, iters: int = 2) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""Sparse convolution and sum pooling over exact edge maps, plus inference
-norms and nonlinearities.
+"""Sparse convolution and sum pooling over exact edge maps, plus norms and
+nonlinearities.
 
-Counterpart of the JAX package's ``ops/sparse_conv.py:35-171`` and
+Counterpart of the JAX package's ``ops/sparse_conv.py:35-184`` and
 ``ops/edge_conv.py:sparse_conv_edges``:
 
     out[p] = sum over edges (k, j, p) of  W[k]^T x[j]   (+ bias)
@@ -11,6 +11,15 @@ matmul against each tile's kernel slice, and an ``index_add_`` into the
 output. Arithmetic follows the JAX package's bf16 path: inputs and weights
 are rounded to the compute dtype, products and sums run in f32 (TF32 off),
 and the result is stored in the compute dtype.
+
+Gradients reach the features, kernels and biases (the JAX package
+differentiates its XLA convs): the conv's backward is written out
+(``_SparseConv``) so that it keeps only the conv's input; sum pooling and
+the norms go through autograd. Rows are taken with ``index_select``, whose
+backward is an ``index_add_`` (atomic adds on the card): the backward of
+``x[idx]`` sorts the indices and accumulates each run of duplicates
+serially, 0.68 of a 0.93 s train step on the H100 when the convs took
+their rows and kernel slices that way.
 """
 
 from __future__ import annotations
@@ -24,22 +33,67 @@ from .edge_conv import EdgeMap
 _MAX_CHUNK_ELEMS = 1 << 26
 
 
-def sparse_conv(feats: torch.Tensor, kernel: torch.Tensor, em: EdgeMap,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
-    """feats [N, Cin] (compute dtype), kernel [K, Cin, Cout] f32 -> [M, Cout]."""
+def _conv(x: torch.Tensor, kernel: torch.Tensor, em: EdgeMap, src: torch.Tensor,
+          dst: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """out[dst[e]] += x[src[e]] @ kernel[k(e)] over the map's tiles, in x's
+    dtype; slots that read row ``x.shape[0]`` read zeros, and row ``n_dst``
+    of the result takes the padding slots' writes and is dropped."""
     cin, cout = kernel.shape[1], kernel.shape[2]
     t = em.tile
-    x = torch.cat([feats.float(), feats.new_zeros((1, cin), dtype=torch.float32)])
-    out = torch.zeros((em.n_out + 1, cout), dtype=torch.float32, device=feats.device)
-    n_tiles = em.tile_k.shape[0]
+    x = torch.cat([x, x.new_zeros((1, cin))])
+    out = x.new_zeros((n_dst + 1, cout))
     chunk = max(1, _MAX_CHUNK_ELEMS // (cin * (t + cout)))
-    for s in range(0, n_tiles, chunk):
+    for s in range(0, em.tile_k.shape[0], chunk):
         tk = em.tile_k[s:s + chunk]
         rows = slice(s * t, (s + tk.shape[0]) * t)
-        g = x[em.tile_in[rows]].view(-1, t, cin)
-        y = torch.bmm(g, kernel[tk])
-        out.index_add_(0, em.tile_out[rows], y.view(-1, cout))
-    out = out[:em.n_out]
+        g = x.index_select(0, src[rows]).view(-1, t, cin)
+        out.index_add_(0, dst[rows], torch.bmm(g, kernel.index_select(0, tk)).view(-1, cout))
+    return out[:n_dst]
+
+
+class _SparseConv(torch.autograd.Function):
+    """The conv with a backward that keeps only its input and kernel: the
+    gathered rows and the tiles' kernel slices are taken again in backward
+    rather than held from the forward (they are the step's largest saved
+    tensors). Input gradient: the same conv over the swapped edge lists
+    (out -> in) with W[k]^T; kernel gradient: each tile's g^T dy, added
+    into its offset's slice."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, em):
+        ctx.em = em
+        ctx.save_for_backward(x, kernel)
+        return _conv(x, kernel, em, em.tile_in, em.tile_out, em.n_out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kernel = ctx.saved_tensors
+        em = ctx.em
+        dy = dy.contiguous()
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv(dy, kernel.transpose(1, 2), em, em.tile_out, em.tile_in, em.n_in)
+        if ctx.needs_input_grad[1]:
+            cin, cout, t = kernel.shape[1], kernel.shape[2], em.tile
+            xp = torch.cat([x, x.new_zeros((1, cin))])
+            dyp = torch.cat([dy, dy.new_zeros((1, cout))])
+            dk = torch.zeros_like(kernel)
+            chunk = max(1, _MAX_CHUNK_ELEMS // (t * (cin + cout)))
+            for s in range(0, em.tile_k.shape[0], chunk):
+                tk = em.tile_k[s:s + chunk]
+                rows = slice(s * t, (s + tk.shape[0]) * t)
+                g = xp.index_select(0, em.tile_in[rows]).view(-1, t, cin)
+                gy = dyp.index_select(0, em.tile_out[rows]).view(-1, t, cout)
+                dk.index_add_(0, tk, torch.bmm(g.transpose(1, 2), gy))
+        return dx, dk, None
+
+
+def sparse_conv(feats: torch.Tensor, kernel: torch.Tensor, em: EdgeMap,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+    """feats [N, Cin] (compute dtype), kernel [K, Cin, Cout] f32 -> [M, Cout];
+    products and sums in f32 (f64 for f64 features)."""
+    acc = torch.promote_types(feats.dtype, torch.float32)
+    out = _SparseConv.apply(feats.to(acc), kernel.to(acc), em)
     if bias is not None:
         out = out + bias
     return out.to(feats.dtype)
@@ -53,7 +107,7 @@ def sparse_sum_pool(feats: torch.Tensor, em: EdgeMap) -> torch.Tensor:
                                                   dtype=torch.float32)])
     out = torch.zeros((em.n_out + 1, feats.shape[1]), dtype=torch.float32,
                       device=feats.device)
-    out.index_add_(0, em.tile_out, x[em.tile_in])
+    out.index_add_(0, em.tile_out, x.index_select(0, em.tile_in))
     return out[:em.n_out].to(feats.dtype)
 
 
@@ -88,6 +142,38 @@ def batch_norm_infer(feats: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     return ((feats.float() - mean) * inv * scale + bias).to(feats.dtype)
 
 
+def masked_moments(feats: torch.Tensor, mask: torch.Tensor | None = None):
+    """Per-channel mean and biased variance over the rows of [..., C] (every
+    leading axis reduced) where ``mask`` [...] is set, in f32; returns
+    (mean [C], var [C], count). The port's rows are flat over the batch and
+    all valid, so it passes no mask; the JAX package's padded [B, N, C]
+    rows pass theirs."""
+    x = feats.float()
+    axes = tuple(range(x.dim() - 1))
+    m = torch.ones_like(x[..., :1]) if mask is None else mask.float()[..., None]
+    count = torch.clamp(m.sum(), min=1.0)
+    mean = (x * m).sum(axes) / count
+    return mean, (m * (x - mean) ** 2).sum(axes) / count, count
+
+
+def batch_norm_train(feats: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor,
+                     momentum: float, eps: float = 1e-5,
+                     mask: torch.Tensor | None = None):
+    """Train-mode BatchNorm (the JAX package's ``batch_norm_train``, torch
+    semantics): normalise with the batch's biased variance; the running
+    statistics become ``(1 - momentum) r + momentum x`` with the unbiased
+    variance. Returns (out, new running mean, new running var); the
+    statistics carry no gradient."""
+    mean, var, count = masked_moments(feats, mask)
+    out = (feats.float() - mean) * torch.rsqrt(var + eps) * scale + bias
+    with torch.no_grad():
+        unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+        new_mean = (1 - momentum) * running_mean + momentum * mean
+        new_var = (1 - momentum) * running_var + momentum * unbiased
+    return out.to(feats.dtype), new_mean, new_var
+
+
 def instance_norm(feats: torch.Tensor, batch: torch.Tensor, batch_size: int,
                   eps: float = 1e-5) -> torch.Tensor:
     """Per-cloud, per-channel normalisation (MinkowskiInstanceNorm without
@@ -100,9 +186,9 @@ def instance_norm(feats: torch.Tensor, batch: torch.Tensor, batch_size: int,
     count = x.new_zeros((batch_size, 1)).index_add_(
         0, batch, x.new_ones((x.shape[0], 1))).clamp_min(1)
     mean = x.new_zeros((batch_size, c)).index_add_(0, batch, x) / count
-    d = x - mean[batch]
+    d = x - mean.index_select(0, batch)
     var = x.new_zeros((batch_size, c)).index_add_(0, batch, d * d) / count
-    return (d * torch.rsqrt(var + eps)[batch]).to(feats.dtype)
+    return (d * torch.rsqrt(var + eps).index_select(0, batch)).to(feats.dtype)
 
 
 def relu(feats: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Checkpoint loading: the reference's torch ``.pth`` files and the native
-checkpoints written by the JAX package.
+"""Checkpoints: loading the reference's torch ``.pth`` files, and loading and
+writing the native checkpoints of the JAX package's schema.
 
 Counterpart of the JAX package's ``utils/checkpoint.py``.
 
@@ -18,7 +18,12 @@ Native: a pickle (optionally zlib-deflated behind a ``DGRZ`` header) of numpy
 trees with the same top-level schema. Arrays stored as
 ``ml_dtypes.bfloat16`` load WITHOUT ``ml_dtypes``: the unpickler rebuilds
 every array from its raw bytes, reinterprets bfloat16 bits as
-``torch.bfloat16`` and widens them to float32.
+``torch.bfloat16`` and widens them to float32. ``save_checkpoint`` writes
+such arrays without ``ml_dtypes`` too: torch rounds the f32 leaves to
+bfloat16 (round to nearest even, as ``ml_dtypes``), and the pickler emits
+for each the records numpy's own pickling of an ``ml_dtypes.bfloat16``
+array holds, so the JAX package's ``load_checkpoint`` reads the file as
+one it wrote.
 """
 
 from __future__ import annotations
@@ -149,3 +154,111 @@ def load_checkpoint(path: str | Path) -> Dict[str, Any]:
     if blob[:4] == _ZMAGIC:
         blob = zlib.decompress(blob[4:])
     return _unwrap(_Unpickler(io.BytesIO(blob)).load())
+
+
+# ---------------------------------------------------------------------------
+# Writing
+# ---------------------------------------------------------------------------
+
+class _BF16Type:
+    """Pickled as the global ``ml_dtypes.bfloat16`` (``_Writer.save_global``)."""
+
+
+class _BF16Descr:
+    """Pickled as ``np.dtype(ml_dtypes.bfloat16)``."""
+
+
+_BF16_DESCR = _BF16Descr()
+# numpy's pickled state of that dtype: version, byte order, no subarray,
+# names or fields, item size 2, alignment 2, flags.
+_BF16_DESCR_STATE = (3, "<", None, None, None, 2, 2, 64)
+_RECONSTRUCT = np.ndarray.__reduce__(np.zeros(1))[0]
+
+
+class _BF16Array:
+    """An f32 array stored as bfloat16 bits (int16, round to nearest even)."""
+
+    def __init__(self, arr: np.ndarray):
+        self.shape = arr.shape
+        self.bits = torch.from_numpy(np.ascontiguousarray(arr, np.float32)) \
+            .to(torch.bfloat16).view(torch.int16).numpy()
+
+
+class _Writer(pickle._Pickler):
+    """The pure-Python pickler (its ``save_global`` can be overridden),
+    writing ``_BF16Array`` leaves as numpy pickles ``ml_dtypes.bfloat16``
+    arrays."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, _BF16Array):
+            return (_RECONSTRUCT, (np.ndarray, (0,), b"b"),
+                    (1, obj.shape, _BF16_DESCR, False, obj.bits.tobytes()))
+        if obj is _BF16_DESCR:
+            return (np.dtype, (_BF16Type, False, True), _BF16_DESCR_STATE)
+        return NotImplemented
+
+    def save_global(self, obj, name=None):
+        if obj is _BF16Type:
+            self.write(pickle.GLOBAL + b"ml_dtypes\nbfloat16\n")
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def _storage_cast(tree, dtype: str | None):
+    """Numpy copies of a tree's tensors and arrays; with ``dtype`` 'bf16'
+    every f32 array of rank >= 1 is stored as bfloat16. Integer, bool and
+    scalar leaves pass through exactly."""
+    if dtype not in (None, "f32", "float32", "bf16", "bfloat16"):
+        raise ValueError(f"unknown checkpoint dtype {dtype!r}")
+    bf16 = dtype in ("bf16", "bfloat16")
+
+    def cast(x):
+        if isinstance(x, dict):
+            return {k: cast(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cast(v) for v in x)
+        if torch.is_tensor(x):
+            x = x.detach().cpu().numpy()
+        if isinstance(x, np.ndarray) and bf16 and x.dtype == np.float32 and x.ndim:
+            return _BF16Array(x)
+        return x
+
+    return cast(tree)
+
+
+def save_checkpoint(path: str | Path, *, epoch: int, params, state,
+                    inlier_params=None, inlier_state=None, opt_state=None,
+                    config: Dict[str, Any] | None = None, best_val: float = -1e8,
+                    best_val_epoch: int = -1, best_val_metric: str = "succ_rate",
+                    dtype: str | None = None, compress: bool = False) -> None:
+    """Write a native checkpoint in the JAX package's schema
+    (``utils/checkpoint.py:117-150`` there; reference trainer.py:527-549):
+    {epoch, state_dict: {params, state} (the FCGF), state_dict_inlier,
+    optimizer, config, best_val, best_val_epoch, best_val_metric}.
+
+    Trees are numpy (``utils/convert.to_jax_params``) or torch. ``dtype``
+    'bf16' stores f32 arrays as bfloat16 (``load_checkpoint`` of either
+    package widens them back); ``compress`` deflates the pickle with zlib
+    behind the ``DGRZ`` header. 'f32' without compression is lossless."""
+    cast = lambda tree: _storage_cast(tree, dtype)
+    payload = {
+        "epoch": epoch,
+        "state_dict": None if params is None else
+            {"params": cast(params), "state": cast(state)},
+        "state_dict_inlier": None if inlier_params is None else
+            {"params": cast(inlier_params), "state": cast(inlier_state)},
+        "optimizer": None if opt_state is None else cast(opt_state),
+        "config": config,
+        "best_val": best_val,
+        "best_val_epoch": best_val_epoch,
+        "best_val_metric": best_val_metric,
+    }
+    buf = io.BytesIO()
+    _Writer(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(payload)
+    blob = buf.getvalue()
+    if compress:
+        blob = _ZMAGIC + zlib.compress(blob, level=1)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(blob)

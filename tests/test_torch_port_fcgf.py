@@ -59,7 +59,7 @@ def test_resunet_bn2c_forward_matches_jax():
                                normalize_feature=True, D=3)
     pp, ps, pcfg = fold_bn.fold_batch_norms(p, s, pcfg)
     assert pcfg.norm_type == "NONE"
-    net = resunet.ResUNet(pcfg)
+    net = resunet.ResUNet(pcfg).eval().requires_grad_(False)
     net.load_state_dict(convert.from_jax_params(pp, ps, pcfg))
     g0 = torch.cat([sparse_grid.voxelize(torch.from_numpy(c), 0.05, b)[1]
                     for b, c in enumerate(clouds)])
@@ -78,10 +78,10 @@ def test_unfolded_batchnorm_matches_folded():
     p, s = resunet.init_params(torch.Generator().manual_seed(3), cfg)
     s = {k: ({kk: vv + rng.rand(*vv.shape).astype(np.float32) for kk, vv in v.items()}
              if "mean" in v else v) for k, v in s.items()}
-    live = resunet.ResUNet(cfg)
+    live = resunet.ResUNet(cfg).eval().requires_grad_(False)
     live.load_state_dict(convert.from_jax_params(p, s, cfg))
     pf, sf, cf = fold_bn.fold_batch_norms(p, s, cfg)
-    folded = resunet.ResUNet(cf)
+    folded = resunet.ResUNet(cf).eval().requires_grad_(False)
     folded.load_state_dict(convert.from_jax_params(pf, sf, cf))
     _, g = sparse_grid.voxelize(torch.from_numpy(rng.rand(600, 3).astype(np.float32)),
                                 0.05)

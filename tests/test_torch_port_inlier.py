@@ -109,7 +109,7 @@ def test_inlier_logits_match_jax():
     ref = np.asarray(logits(jnp.asarray(c0), jnp.asarray(c1), jnp.asarray(feats)))[:N]
     pcfg = resunet.make_config("ResUNetBN2F", 1, 1, D=6)
     pp, ps, pcfg = fold_bn.fold_batch_norms(p, s, pcfg)
-    net = resunet.ResUNet(pcfg)
+    net = resunet.ResUNet(pcfg).eval().requires_grad_(False)
     net.load_state_dict(convert.from_jax_params(pp, ps, pcfg))
     plan = unet_plan.build_unet_plan(_port_grid(c0, c1), 1, 3, pcfg.region_type,
                                      pcfg.levels)

@@ -50,11 +50,11 @@ def test_folded_forward_equals_live_bn(name, small_plan_input):
     cfg = spec.make_config(1, 8, normalize_feature=True, D=3)
     jspec = jload(name)
     p, s = numpy_tree(jspec, jspec.make_config(1, 8, D=3), np.random.RandomState(4))
-    live = spec.module(cfg)
+    live = spec.module(cfg).eval().requires_grad_(False)
     live.load_state_dict(convert.from_jax_params(p, s, cfg))
     pf, sf, cf = fold_bn.fold_batch_norms(p, s, cfg)
     assert cf.norm_type == "NONE"
-    folded = spec.module(cf)
+    folded = spec.module(cf).eval().requires_grad_(False)
     folded.load_state_dict(convert.from_jax_params(pf, sf, cf))
     plan = unet_plan.build_unet_plan(grid, 2, 3, cfg.region_type, cfg.levels,
                                      with_pooling=cfg.with_pooling)

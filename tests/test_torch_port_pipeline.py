@@ -133,9 +133,13 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils/timer.py", "data/base.py", "data/collate.py",
                  "data/factory.py", "data/kitti.py", "data/synthetic.py",
                  "data/threedmatch.py", "data/transforms.py",
-                 "scripts/test_3dmatch.py", "scripts/test_kitti.py"):
+                 "scripts/test_3dmatch.py", "scripts/test_kitti.py",
+                 "ops/losses.py", "ops/sparse_conv.py", "models/common.py",
+                 "utils/convert.py", "core/correspondence.py",
+                 "core/train_step.py", "core/trainer.py", "core/fcgf_train.py",
+                 "train.py"):
         assert f"deepglobalregistration_tpu_torch/{path}" in walked
-    banned = ("jax", "jaxlib", "optax", "deepglobalregistration_tpu")
+    banned = ("jax", "jaxlib", "optax", "ml_dtypes", "deepglobalregistration_tpu")
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

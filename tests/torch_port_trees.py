@@ -8,6 +8,8 @@ non-trivial running statistics. Drawing them with ``jax.random`` would
 compile one program per leaf shape, tens of seconds on the CPU.
 """
 
+import contextlib
+
 import jax
 import numpy as np
 
@@ -114,9 +116,63 @@ def forward_both(name, D=3, counts=(300, 260), span=14, cap=512, seed=0,
         from deepglobalregistration_tpu_torch.utils.fold_bn import fold_batch_norms
 
         params, state, cfg = fold_batch_norms(params, state, cfg)
-    net = spec.module(cfg)
+    net = spec.module(cfg).eval().requires_grad_(False)
     net.load_state_dict(convert.from_jax_params(params, state, cfg))
     plan = build_unet_plan(port_grid(clouds), len(counts), conv1_kernel_size,
                            cfg.region_type, cfg.levels, with_pooling=cfg.with_pooling)
     got = net(plan, torch.from_numpy(np.concatenate(feats))).numpy()
     return got, ref
+
+
+def pair_batch(rng, b, n, p, voxel=0.05, span=20):
+    """A padded training batch of ``b`` pairs (the fields of the JAX
+    package's ``PairBatch``, numpy): cloud 0 is up to 3n/4 random points in
+    a ``span``-voxel box, one a voxel; cloud 1 is cloud 0 under a random rigid
+    motion, again one point a voxel (as a voxelized scan is: the JAX
+    package's ``data_parallel.synthetic_pair_batch`` keeps every moved point,
+    so two rows of its cloud 1 may share a voxel); the positives are the
+    first ``p`` (point, its moved self) pairs."""
+    from scipy.spatial.transform import Rotation
+
+    xyz0, xyz1 = np.zeros((2, b, n, 3), np.float32)
+    c0, c1 = np.full((2, b, n, 3), 32766, np.int32)
+    n0, n1, pos_num = np.zeros((3, b), np.int32)
+    pos = np.zeros((b, p, 2), np.int32)
+    T = np.zeros((b, 4, 4), np.float32)
+    for i in range(b):
+        pts = (rng.rand(n * 3 // 4, 3) * (voxel * span)).astype(np.float32)
+        _, sel = np.unique(np.floor(pts / voxel).astype(np.int32), axis=0,
+                           return_index=True)
+        pts = pts[np.sort(sel)]
+        R = Rotation.random(random_state=rng).as_matrix().astype(np.float32)
+        t = rng.randn(3).astype(np.float32) * 0.1
+        moved = pts @ R.T + t
+        _, keep = np.unique(np.floor(moved / voxel).astype(np.int32), axis=0,
+                            return_index=True)
+        keep = np.sort(keep)
+        moved = moved[keep]
+        xyz0[i, :len(pts)], xyz1[i, :len(moved)] = pts, moved
+        c0[i, :len(pts)] = np.floor(pts / voxel)
+        c1[i, :len(moved)] = np.floor(moved / voxel)
+        n0[i], n1[i] = len(pts), len(moved)
+        pairs = np.stack([keep, np.arange(len(keep))], 1)[:p]
+        pos[i, :len(pairs)] = pairs
+        pos_num[i] = len(pairs)
+        T[i, :3, :3], T[i, :3, 3], T[i, 3, 3] = R, t, 1.0
+    return xyz0, xyz1, c0, c1, n0, n1, pos, pos_num, T
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """PyTorch's intra-op threads set to ``n`` for the block. The training
+    tests' many small CPU ops each start a parallel region; with several
+    test workers on one machine, each region waits for threads the other
+    workers hold (the trainer tests took 30-100x their one-worker time)."""
+    import torch
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)

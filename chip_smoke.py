@@ -90,12 +90,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      CPU, ``train.main`` with validation, resume and the checkpoint as
      ``DeepGlobalRegistration``'s weights, and 4 FCGF hardest-contrastive
      steps;
- 14. print one JSON line describing every kernel, the card's line, and as
+ 14. data parallelism (``phase_parallel``, ``parallel/data_parallel.py``):
+     the train step on 2 ranks sharing ``cuda:0`` through gloo against the
+     one-process step on bench batch 4 (loss 1e-5 relative; gradients and
+     updated parameters 1e-4 of the largest leaf's; the ranks bit for bit
+     after 3 steps; one ``nn1_mma_batched`` launch a rank a step, its
+     indices those of the kernel on the rank's shard features, held to the
+     plain version at the shard's shapes; s/step and each rank's peak
+     memory); ``register_batch(mesh=...)`` on the
+     8-pair bench stream over the 2 ranks against the one-process batch
+     (equal gate / ``cand_ok`` / rerun bits, the bench pose limits, s/pair
+     in turns); ``make_mesh(2)`` and ``train.main --num_devices 2`` raise
+     with one card, NCCL on one shared card raises; with 2 or more cards
+     the NCCL dry runs;
+ 15. print one JSON line describing every kernel, the card's line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 Each path (4-7, 9, 10, 11's default configuration and .pth runs, 12's
 demo, 3DMatch loop, KITTI ground truth and KITTI loop, 13's train step and
-``train.main``) is driven with the kernels' launch counts set to 0 just
+``train.main``, 14's data-parallel step and fan-out, counted in each
+rank's process) is driven with the kernels' launch counts set to 0 just
 before it and read just after; launches made to compare a kernel with its
 plain version are not counted. Imports nothing of JAX. Exits non-zero when
 no CUDA device is visible.
@@ -1967,6 +1981,223 @@ def phase_train(knn) -> dict:
     return out
 
 
+# The data-parallel phase (14): two ranks share the one card through gloo
+# (NCCL needs a card a rank), so it runs on a machine with one card.
+PARALLEL_DEVICES = ["cuda:0", "cuda:0"]
+# n ranks against one process, one step from the same parameters on the same
+# 1-NN indices: the ranks sum BN moments and losses in another order and
+# index_add_'s atomics reorder the convs' sums, as in card vs CPU (phase 13).
+PARALLEL_TOL = {"loss": 1e-5, "grads": 1e-4, "params": 1e-4}
+
+
+def _leaf_gap(got: dict, want: dict) -> float:
+    """The largest |got - want| over the largest |want| of any leaf."""
+    scale = max(float(v.abs().max()) for v in want.values())
+    return max(float((got[k] - v).abs().max()) for k, v in want.items()) / scale
+
+
+def _parallel_train(n: int, devices, config, batch, label: str) -> dict:
+    """The train step on ``n`` ranks (``devices``; None: a card each, NCCL):
+    3 steps, then s/step and peak memory a rank; each rank's 1-NN of the
+    first step equals nn1_mma_batched on that rank's shard features, and
+    that launch is held to the plain version at the shard's shapes
+    (check_nn1_batched); then against one step of the one-process step fed
+    the ranks' 1-NN indices, twice (the second run gives the one process's
+    own run-to-run spread)."""
+    from deepglobalregistration_tpu_torch.ops import knn
+    from deepglobalregistration_tpu_torch.parallel import data_parallel as dp
+    from deepglobalregistration_tpu_torch.tools.parallel_bench import train_rank
+
+    t0 = time.time()
+    ranks = dp.spawn(train_rank, n, config, batch, 3, 5, devices=devices)
+    spawn_s = time.time() - t0
+    r0 = ranks[0]
+    per = len(batch.num0) // n
+    match_err = []
+    for r, rank in enumerate(ranks):
+        m = rank["match"]
+        F0, F1 = m["F0"].cuda(), m["F1"].cuda()
+        idx, _ = knn.nn1_mma_batched(F0, F1, knn.pair_counts(m["num0"], m["num1"], "cuda"))
+        if not torch.equal(idx.long().cpu(), r0["stats"]["nn_idx"][r * per:(r + 1) * per]):
+            fail(f"parallel train{label}: rank {r}'s 1-NN indices differ from "
+                 "nn1_mma_batched on its shard features")
+        match_err.append(check_nn1_batched(
+            knn, F0, F1, m["num0"], m["num1"],
+            f"parallel train{label} rank {r}")["max_abs_err"])
+        del F0, F1
+    ones = [train_rank(None, config, batch, steps=1, timed=5 * (k == 0),
+                       nn_idx=r0["stats"]["nn_idx"]) for k in range(2)]
+    one = ones[0]
+
+    def gaps(a):
+        return {"loss": abs(a["loss"][0] - one["loss"][0]) / abs(one["loss"][0]),
+                "grads": _leaf_gap(a["grads"], one["grads"]),
+                "params": _leaf_gap(a["params_first"], one["params_first"])}
+
+    per_step = [[lc["nn1_mma_batched"] for lc in r["launches"]] for r in ranks]
+    g, w = r0["grads"], one["grads"]
+    worst = max(w, key=lambda k: float((g[k] - w[k]).abs().max()))
+    tr = {"ranks": n, "devices": dp.make_mesh(n, devices).devices,
+          "backend": dp.make_mesh(n, devices).backend,
+          "num0": batch.num0.tolist(), "num1": batch.num1.tolist(),
+          "loss_ranks": [r["loss"] for r in ranks], "loss_one_process": one["loss"],
+          "gaps": gaps(r0), "one_process_spread": gaps(ones[1]),
+          "worst_grad_leaf": {"leaf": worst, "gap_of_leaf_max": _rel_gap(g[worst], w[worst]),
+                              "leaf_max": float(w[worst].abs().max())},
+          "tolerances": PARALLEL_TOL,
+          "match_max_abs_err_ranks": match_err,
+          "ranks_agree_after_3_steps": [r["ranks_agree"] for r in ranks],
+          "nn1_mma_batched_per_rank_per_step": per_step,
+          "launches_per_rank": [r["launches"] for r in ranks],
+          "s_per_step_ranks": [r["s_per_step"] for r in ranks],
+          "s_per_step_one_process": one["s_per_step"],
+          "peak_gib_ranks": [r["peak_gib"] for r in ranks],
+          "peak_gib_one_process": one["peak_gib"], "spawn_s": spawn_s,
+          "card": card_line()}
+    print(json.dumps({f"parallel_train{label}": tr}), flush=True)
+    for k, tol in PARALLEL_TOL.items():
+        if not tr["gaps"][k] <= tol:
+            fail(f"parallel train{label}: {k} gap {tr['gaps'][k]:.3e} over {tol}")
+    if not all(r["ranks_agree"] for r in ranks):
+        fail(f"parallel train{label}: the ranks' parameters differ after 3 steps")
+    if per_step != [[1, 1, 1]] * n or not all(all(r["grad_finite"]) for r in ranks):
+        fail(f"parallel train{label}: nn1_mma_batched launches per rank per step "
+             f"{per_step}")
+    return tr
+
+
+def _parallel_fanout(n: int, devices, config, stream, label: str) -> dict:
+    """register_batch(mesh=...) of the ``stream`` pairs over ``n`` ranks,
+    between two one-process register_batch(force_vmapped=True) runs (turns:
+    one process, ranks, one process; each a counted call and 3 timed
+    ones)."""
+    from deepglobalregistration_tpu_torch.parallel import data_parallel as dp
+    from deepglobalregistration_tpu_torch.tools.parallel_bench import fanout_rank
+
+    xs, ys = [p[0] for p in stream], [p[1] for p in stream]
+    first = fanout_rank(None, config, xs, ys, reps=3)
+    ranks = dp.spawn(fanout_rank, n, config, xs, ys, 3, devices=devices)
+    second = fanout_rank(None, config, xs, ys, reps=3)
+    T = ranks[0]["T"][0]
+    errs = [pose_errors(Tp, p[2]) for Tp, p in zip(T, stream)]
+    rre = float(np.mean([e[0] for e in errs]))
+    rte = float(np.mean([e[1] for e in errs]))
+    one_runs = first["T"] + second["T"]
+    bits = ("gate", "cand_ok", "rerun")
+    fan = {"ranks": n, "pairs": len(stream),
+           "bits": {k: ranks[0]["last_batch"][k] for k in bits},
+           "bits_equal_one_process": all(r["last_batch"][k] == first["last_batch"][k]
+                                         for r in ranks for k in bits),
+           "ranks_equal": all(np.array_equal(r["T"][0], T) for r in ranks),
+           "rre_deg": rre, "rte_cm": rte * 100,
+           "rre_deg_per_pair": [e[0] for e in errs],
+           "rte_cm_per_pair": [e[1] * 100 for e in errs],
+           "max_abs_T_ranks_minus_one_process": float(np.abs(T - first["T"][0]).max()),
+           "max_abs_T_one_process_spread": max(
+               float(np.abs(a - one_runs[0]).max()) for a in one_runs[1:]),
+           "s_per_pair_one_process_turns": [first["s_per_pair"], second["s_per_pair"]],
+           "s_per_pair_ranks": [r["s_per_pair"] for r in ranks],
+           "peak_gib_ranks": [r["peak_gib"] for r in ranks],
+           "peak_gib_one_process": first["peak_gib"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "launches_one_process": first["launches"], "card": card_line()}
+    print(json.dumps({f"parallel_fanout{label}": fan}), flush=True)
+    if not (fan["bits_equal_one_process"] and fan["ranks_equal"]):
+        fail(f"parallel fan-out{label}: bits {fan['bits']} against one process "
+             f"{first['last_batch']}, ranks equal {fan['ranks_equal']}")
+    if not np.isfinite(T).all() or rre > RRE_DEG or rte > RTE_M:
+        fail(f"parallel fan-out{label}: mean rre {rre:.3f} deg / rte "
+             f"{rte * 100:.2f} cm (limits 1 deg / 10 cm)")
+    per_sub = -(-len(stream) // n)  # pairs a rank, in sub-batches of 4
+    if [r["launches"]["nn1_mma_batched"] for r in ranks] != [-(-per_sub // 4)] * n:
+        fail(f"parallel fan-out{label}: launches {fan['launches_per_rank']}")
+    return fan
+
+
+def _parallel_inputs():
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.data.factory import make_data_loader
+    from deepglobalregistration_tpu_torch.utils.synthetic import synthetic_pair
+
+    config = default_config(**TRAIN, device="cuda", test_valid=False)
+    batch = next(iter(make_data_loader(config, "train", config.batch_size)))["pair_batch"]
+    stream = [synthetic_pair(n=30000, seed=i % 4) for i in range(8)]
+    return config, batch, default_config(bf16=True, device="cuda", **BENCH), stream
+
+
+def phase_parallel(knn) -> dict:
+    """Data parallelism (parallel/data_parallel.py) on the card, through the
+    rank programs of ``tools/parallel_bench.py`` (each rank a process of
+    ``data_parallel.spawn``; launches counted in each rank's process):
+    (a) the train step at the training phase's configuration (bench batch
+        4, committed FCGF weights, seeded 6D net) on 2 ranks sharing cuda:0
+        (gloo): held against the one-process step on the same batch fed
+        the ranks' 1-NN indices, each rank's indices first held to
+        nn1_mma_batched on its shard features and that launch to the
+        plain version at the shard's shapes (loss 1e-5 relative, gradients
+        and updated parameters 1e-4 of the largest leaf's), the ranks' parameters and
+        BN statistics bit for bit after 3 steps, exactly one
+        nn1_mma_batched launch a rank a step; s/step and peak memory a rank
+        beside the one process's (``_parallel_train``);
+    (b) register_batch(mesh=...) on bench.py's 8-pair stream over the 2
+        ranks against the one-process register_batch(force_vmapped=True):
+        equal gate, cand_ok and rerun bits, the bench pose limits, the
+        largest T gap beside the one-process runs' own spread, s/pair in
+        turns, the launches a rank (``_parallel_fanout``);
+    (c) no fallback: make_mesh(2) and train.main --num_devices 2 raise with
+        one card visible; NCCL on ["cuda:0", "cuda:0"] raises;
+    (d) with 2 or more cards, ``phase_parallel_nccl`` at min(cards, 4);
+        else one line says NCCL at more than one rank was not run."""
+    import tempfile
+
+    from deepglobalregistration_tpu_torch import train
+    from deepglobalregistration_tpu_torch.parallel import data_parallel as dp
+
+    config, batch, bconfig, stream = _parallel_inputs()
+    out = {"train": _parallel_train(2, PARALLEL_DEVICES, config, batch, ""),
+           "fanout": _parallel_fanout(2, PARALLEL_DEVICES, bconfig, stream, "")}
+    raised = {}
+    cards = torch.cuda.device_count()
+    checks = [("nccl_shared_card", lambda: dp.make_mesh(
+        2, devices=PARALLEL_DEVICES, backend="nccl"))]
+    if cards == 1:
+        argv = [a for k, v in dict(TRAIN, out_dir=tempfile.mkdtemp()).items()
+                for a in (f"--{k}", str(v))] + ["--num_devices", "2"]
+        checks += [("make_mesh_2", lambda: dp.make_mesh(2)),
+                   ("train_main_num_devices_2", lambda: train.main(argv))]
+    for name, fn in checks:
+        try:
+            fn()
+        except (RuntimeError, ValueError) as e:
+            raised[name] = str(e)
+        else:
+            fail(f"parallel: {name} did not raise")
+    print(json.dumps({"parallel_no_fallback": raised}), flush=True)
+    if cards >= 2:
+        out["nccl"] = phase_parallel_nccl(min(cards, 4))
+    else:
+        print(f"parallel: NCCL at more than one rank not run: {cards} card visible",
+              flush=True)
+    return out
+
+
+def phase_parallel_nccl(n: int) -> dict:
+    """NCCL over ``n`` cards, a card a rank: the JAX package's dry runs
+    (``dryrun_step``, ``dryrun_fanout``), then ``_parallel_train`` (when n
+    divides the batch of 4) and ``_parallel_fanout`` at the bench
+    configuration, held as in phase 14."""
+    from deepglobalregistration_tpu_torch.parallel import data_parallel as dp
+
+    config, batch, bconfig, stream = _parallel_inputs()
+    out = {"n": n, "dryrun_step_loss": dp.dryrun_step(n),
+           "dryrun_fanout_finite": bool(np.isfinite(dp.dryrun_fanout(n)).all())}
+    print(json.dumps({"parallel_nccl_dryruns": out}), flush=True)
+    if config.batch_size % n == 0:
+        out["train"] = _parallel_train(n, None, config, batch, "_nccl")
+    out["fanout"] = _parallel_fanout(n, None, bconfig, stream, "_nccl")
+    return out
+
+
 def _tree_leaves(tree):
     for k in sorted(tree):
         v = tree[k]
@@ -2004,6 +2235,7 @@ def main() -> int:
     models = phase_models(knn)
     ev = phase_eval(knn, e["pairs"], e["Ts"])
     tr = phase_train(knn)
+    par = phase_parallel(knn)
     feat, scan = e["timings"]
     kfeat, kscan = kitti["timings"]
     dfeat, dscan = models["default_timings"]
@@ -2057,7 +2289,12 @@ def main() -> int:
                           f"vmap): {r['shape']}",
                  **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "unbatched_sum_ms")},
-                 "launches_kitti": batch_kitti["launches"][name]}
+                 "launches_kitti": batch_kitti["launches"][name],
+                 "launches_parallel_train": sum(
+                     step[name] for rank in par["train"]["launches_per_rank"]
+                     for step in rank),
+                 "launches_parallel_fanout": sum(
+                     lc[name] for lc in par["fanout"]["launches_per_rank"])}
         if name == "nn1_mma_batched":
             k = batch_kitti["timing"]
             entry.update({f"{key}_kitti": k[key] for key in (
@@ -2070,7 +2307,8 @@ def main() -> int:
                 tr["num0"], tr["num1"], 32)
             entry["launches_train"] = tr["launches"][name]
             entry["launches_train_main"] = tr["trainer"]["launches"][name]
-            entry["max_abs_err"] = max(entry["max_abs_err"], tr["max_abs_err"])
+            entry["max_abs_err"] = max(entry["max_abs_err"], tr["max_abs_err"],
+                                       *par["train"]["match_max_abs_err_ranks"])
         entries.append(entry)
     print(json.dumps({"kernels": entries + gather_entries}), flush=True)
     print(card, flush=True)

@@ -150,10 +150,9 @@ demo_arg.add_argument("--pcd1", default="redkitchen_010.ply", type=str)
 
 # TPU group: register() reads point_buckets, ransac_hypotheses,
 # level_shrink*, fold_bn, bf16, dense_extent and icp_candidates. The train
-# step reads remat; num_devices > 1 is parallel/'s (the trainer raises);
-# edge_budget_scale sizes
-# the JAX package's fixed 6D edge budgets, which the port's exact maps do
-# not have.
+# step reads remat; train.main reads num_devices (N > 1: N data-parallel
+# ranks, parallel/data_parallel.py); edge_budget_scale sizes the JAX
+# package's fixed 6D edge budgets, which the port's exact maps do not have.
 tpu_arg = parser.add_argument_group("TPU")
 tpu_arg.add_argument("--point_buckets", type=str, default="8192,16384,32768,65536,131072",
                      help="static padded-capacity ladder for point buffers")
@@ -165,7 +164,9 @@ tpu_arg.add_argument("--level_shrink_6d", type=int, default=1,
                           "(outlier rows barely merge under 6D stride-down; "
                           "edge-compacted convs make full capacity cheap)")
 tpu_arg.add_argument("--num_devices", type=int, default=0,
-                     help="data-parallel devices for training (0 = all visible)")
+                     help="data-parallel ranks for training, one process and "
+                          "device each (0 or 1 = one process; N > 1: cuda:0.."
+                          "N-1 over NCCL, or N CPU ranks with --device cpu)")
 tpu_arg.add_argument("--fold_bn", type=str2bool, default=True,
                      help="fold inference BatchNorm into conv weights at load")
 tpu_arg.add_argument("--remat", type=str2bool, default=False,

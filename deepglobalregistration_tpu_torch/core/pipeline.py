@@ -28,7 +28,8 @@ program (the JAX package's vmapped ``register_pair_device``): one FCGF
 forward over the 2B clouds, one batched 1-NN launch, one 6D forward over
 the B pairs' correspondences, the refinement and ICP over all pairs with
 per-pair freezing; pairs whose gate or candidate lists fail rerun through
-``register()``.
+``register()``. With ``mesh=`` it fans the pairs out over the ranks of
+``parallel/data_parallel.py``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from ..models.resunet import ResUNetConfig
 from ..models.unet_plan import build_unet_plan
 from ..ops import icp as icp_ops
 from ..ops import knn, ransac, se3, sparse_grid
+from ..parallel import data_parallel as dp
 from ..utils import checkpoint, convert, device as device_utils
 from ..utils.fold_bn import fold_batch_norms
 from ..utils.timer import Timer
@@ -358,40 +360,73 @@ class DeepGlobalRegistration:
                        force_vmapped: bool = False) -> np.ndarray:
         """Register many pairs; returns [B, 4, 4] float64.
 
-        Without ``force_vmapped`` this is ``register_many`` (the JAX package's
-        single-chip route). ``force_vmapped=True`` (the JAX package's keyword;
-        here it means the batched program, there is no ``vmap``) runs the
-        pairs in sub-batches of ``_MAX_SUB_BATCH``, in order, each as one
-        batched program that gives every pair the answer it would get alone
-        up to rounding. ``last_batch`` then holds, per pair, ``gate`` (the
-        weighted-sum gate bit), ``cand_ok``, ``rerun`` and the iterations
-        (``refine``, ``icp``), and per sub-batch ``icp_mode`` and ``cap``
-        (its voxel bucket). ``mesh`` (fan-out over devices) needs
-        ``parallel/``, which is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError("register_batch(mesh=...) fans pairs out "
-                                      "over devices through parallel/, which "
-                                      "is not ported yet")
-        if not force_vmapped:
+        Without ``force_vmapped`` or ``mesh`` this is ``register_many`` (the
+        JAX package's single-chip route). ``force_vmapped=True`` (the JAX
+        package's keyword; here it means the batched program, there is no
+        ``vmap``) runs the pairs in sub-batches of ``_MAX_SUB_BATCH``, in
+        order, each as one batched program that gives every pair the answer
+        it would get alone up to rounding, then reruns every pair whose gate
+        bit or ``cand_ok`` is false through ``register()``, one after
+        another in pair order, so the seeded RANSAC draws in a fixed order.
+        ``last_batch`` then holds, per pair, ``gate`` (the weighted-sum gate
+        bit), ``cand_ok``, ``rerun`` and the iterations (``refine``,
+        ``icp``), and per sub-batch ``icp_mode`` and ``cap`` (its voxel
+        bucket).
+
+        ``mesh`` (this rank's ``parallel.data_parallel.Mesh``; every rank
+        calls with the full lists, on an instance on ``mesh.device`` with
+        the same nets): the fan-out over devices. The batch is padded to a
+        multiple of the ranks by repeating pairs ``i % B``, each rank runs
+        its contiguous shard through the batched program, the ranks'
+        answers and ``last_batch`` lists are gathered (sub-batches rank by
+        rank), and rank 0 runs the reruns in pair order (its generator
+        draws as the one-process batch's would) and broadcasts the poses.
+        Every rank returns the whole [B, 4, 4]."""
+        if mesh is None and not force_vmapped:
             return self.register_many(xyz0_list, xyz1_list)
         clouds0, clouds1 = list(xyz0_list), list(xyz1_list)
         if len(clouds0) != len(clouds1):
             raise ValueError(f"{len(clouds0)} source clouds for {len(clouds1)} targets")
+        b = len(clouds0)
+        mine = range(b)
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"rank {mesh.rank} runs on {mesh.device}, this "
+                                 f"instance on {self.device}")
+            per = -(-b // mesh.size)
+            mine = [i % b for i in range(mesh.rank * per, (mesh.rank + 1) * per)]
         self.last_batch = {k: [] for k in ("gate", "cand_ok", "rerun", "refine",
                                            "icp", "icp_mode", "cap")}
-        out = np.zeros((len(clouds0), 4, 4))
+        out = np.zeros((len(mine), 4, 4))
         m = self._MAX_SUB_BATCH
-        for s in range(0, len(clouds0), m):
-            out[s:s + m] = self._register_sub_batch(clouds0[s:s + m], clouds1[s:s + m])
+        for s in range(0, len(mine), m):
+            sub = mine[s:s + m]
+            out[s:s + m] = self._register_sub_batch([clouds0[i] for i in sub],
+                                                    [clouds1[i] for i in sub])
+        if mesh is not None and mesh.size > 1:
+            ranks = dp.gather_objects(mesh, (out, self.last_batch))
+            out = np.concatenate([r[0] for r in ranks])[:b]
+            self.last_batch = {k: [v for r in ranks for v in r[1][k]]
+                               for k in self.last_batch}
+            for k in ("gate", "cand_ok", "rerun", "refine", "icp"):
+                del self.last_batch[k][b:]
+        if mesh is None or mesh.rank == 0:
+            for p in range(b):
+                if self.last_batch["rerun"][p]:
+                    log.info("register_batch: pair %d failed the weighted-sum gate "
+                             "or its ICP candidate lists went stale; rerunning it "
+                             "through register()", p)
+                    out[p] = self.register(clouds0[p], clouds1[p])
+        if mesh is not None and mesh.size > 1:
+            out = dp.broadcast_object(mesh, out if mesh.rank == 0 else None)
         return out
 
     @torch.no_grad()
     def _register_sub_batch(self, clouds0, clouds1) -> np.ndarray:
         """One batched program over B <= _MAX_SUB_BATCH pairs (the JAX
-        package's ``register_pair_device`` under ``vmap``), then the rerun of
-        every pair whose gate bit or ``cand_ok`` is false through
-        ``register()``, one after another in pair order, so the seeded RANSAC
-        draws in a fixed order. Adds nothing to ``overflow_count``."""
+        package's ``register_pair_device`` under ``vmap``); a pair whose gate
+        bit or ``cand_ok`` is false gets no answer here (``register_batch``
+        reruns it). Adds nothing to ``overflow_count``."""
         b = len(clouds0)
         timers = self.batch_stage_timers
         xyz0 = [self._as_tensor(x) for x in clouds0]
@@ -474,12 +509,6 @@ class DeepGlobalRegistration:
             lb[key].extend(vals)
         lb["icp_mode"].append(mode if self.use_icp else "off")
         lb["cap"].append(cap)
-        for p in range(b):
-            if rerun[p]:
-                log.info("register_batch: pair %d failed the weighted-sum gate "
-                         "or its ICP candidate lists went stale; rerunning it "
-                         "through register()", p)
-                out[p] = self.register(clouds0[p], clouds1[p])
         return out
 
     # ------------------------------------------------------------------

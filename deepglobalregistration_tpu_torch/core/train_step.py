@@ -17,6 +17,13 @@ The JAX step pads every pair to the batch's capacity; the port's nets take
 each pair's valid rows only (flat over the batch), and the step scatters the
 logits back to the padded [B, N] layout, so that its stats have the JAX
 step's keys and shapes and compare row for row.
+
+With a ``mesh`` (``parallel/data_parallel.py``) each rank runs its shard of
+the batch and the step computes the one-process step over the whole batch:
+the inlier net's train-mode BN takes every rank's rows, the pose loss and
+the BCE divide by whole-batch counts, so each rank's loss is its share and
+the shares sum to the one-process loss, and the gradients are summed over
+the ranks before the finiteness check and the update.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch.utils.checkpoint
 from ..data.collate import PairBatch
 from ..models.unet_plan import build_unet_plan
 from ..ops import knn, losses, metrics, procrustes
+from ..parallel import data_parallel as dp
 from .correspondence import find_correct_correspondence
 
 
@@ -179,7 +187,7 @@ def generate_inlier_input(fcgf, batch: PairBatch, inlier_feature_type: str,
 
 
 def make_train_step(fcgf, inlier, config, optimizer: torch.optim.Optimizer,
-                    timers: Dict | None = None):
+                    timers: Dict | None = None, mesh=None):
     """The step closures over the frozen ``fcgf`` (eval mode) and the
     ``inlier`` net (train mode): ``loss_fn(batch, nn_idx=None) -> (loss,
     stats)`` and ``step(batch, nn_idx=None) -> stats``, the JAX package's
@@ -190,8 +198,22 @@ def make_train_step(fcgf, inlier, config, optimizer: torch.optim.Optimizer,
     (its activations recomputed in backward; the recompute's BN statistic
     update is undone). ``timers`` (name -> ``utils.timer.Timer``) times the
     stages fcgf, match, plan6, inlier, loss, backward and optimizer, with a
-    device synchronisation at each edge."""
+    device synchronisation at each edge.
+
+    ``mesh`` (a rank's ``data_parallel.Mesh``): ``batch`` (and ``nn_idx``)
+    are this rank's shard, ``loss`` this rank's share of the whole batch's
+    loss, the stats the whole batch's (gathered rank by rank), and ``step``
+    sums the gradients over the ranks. It sets the inlier net's BN group
+    (``Net.set_bn_group``). Every rank must call the closures in the same
+    order, a rank whose shard has no valid row included."""
     icfg = inlier.cfg
+    group = mesh.group if mesh is not None and mesh.size > 1 else None
+    if group is not None:
+        inlier.set_bn_group(group)
+
+    def total(x: torch.Tensor) -> torch.Tensor:  # a count of the whole batch
+        return dp.global_sum(mesh, x)
+
     clip = config.clip_weight_thresh
     params = [p for p in inlier.parameters() if p.requires_grad]
 
@@ -235,21 +257,25 @@ def make_train_step(fcgf, inlier, config, optimizer: torch.optim.Optimizer,
             rot_err = metrics.batch_rotation_error(R, batch.T_gt[:, :3, :3])
             trans_err = metrics.batch_translation_error(t, batch.T_gt[:, :3, 3])
             pose_each = rot_err + config.trans_weight * trans_err
-            n_valid = torch.clamp(pair_valid.float().sum(), min=1.0)
+            n_valid = torch.clamp(total(pair_valid.float().sum()), min=1.0)
             pose_loss = torch.where(pair_valid, pose_each,
                                     torch.zeros_like(pose_each)).sum() / n_valid
             labels = inp.is_correct.float()
             bce = losses.balanced_loss if config.use_balanced_loss \
                 else losses.unbalanced_loss
-            inlier_loss = bce(logits, labels, valid)
+            inlier_loss = bce(logits, labels, valid, total=total)
             loss = config.procrustes_loss_weight * pose_loss
             if config.inlier_use_direct_loss:
                 loss = loss + config.inlier_direct_loss_weight * inlier_loss
         stats = {"loss": loss, "pose_loss": pose_loss, "inlier_loss": inlier_loss,
-                 "rot_err_deg": torch.rad2deg(rot_err.mean()),
-                 "trans_err": trans_err.mean(),
-                 "valid_pairs": pair_valid.sum(), "logits": logits, "labels": labels,
+                 "valid_pairs": pair_valid.sum(), "rot_err": rot_err,
+                 "trans_err": trans_err, "logits": logits, "labels": labels,
                  "valid": valid, "R": R, "t": t, "nn_idx": inp.nn_idx}
+        if group is not None:  # the whole batch's
+            for k, v in stats.items():
+                stats[k] = total(v) if v.dim() == 0 else dp.all_gather_cat(mesh, v)
+        stats["rot_err_deg"] = torch.rad2deg(stats.pop("rot_err").mean())
+        stats["trans_err"] = stats["trans_err"].mean()
         return loss, stats
 
     def step(batch: PairBatch, nn_idx: torch.Tensor | None = None):
@@ -265,6 +291,8 @@ def make_train_step(fcgf, inlier, config, optimizer: torch.optim.Optimizer,
             else:
                 loss.backward()
         with stage("optimizer"):
+            if group is not None:
+                dp.all_reduce_grads(mesh, params)
             finite = grads_finite(params)
             if finite:
                 optimizer.step()

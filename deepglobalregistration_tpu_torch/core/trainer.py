@@ -16,6 +16,17 @@ caller asks for ``"cpu"``; no card raises). The FCGF net is frozen: eval
 mode, BN unfolded, f32. Validation runs the inlier net as the JAX
 trainer's validation does, in train-mode BN, with the running statistics
 restored afterwards.
+
+``num_devices`` N > 1 trains data-parallel: one trainer a rank of a mesh
+(``parallel/data_parallel.py``; ``train.main`` launches them), on the
+rank's device. Rank 0 draws each batch from its loader and broadcasts it;
+every rank runs its shard (``make_sharded_train_step``), so every rank
+holds the same parameters after every update. Rank 0 validates alone,
+unsharded, with the inlier net's BN group off, while the other ranks wait
+at a barrier: the JAX trainer's validation is unsharded too, so any
+``val_batch_size`` works (the default is 1), the validation loader is
+drawn once, and no card but rank 0's is needed for it. Only rank 0 writes
+checkpoints, scalars and logs; a resume reads on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 
 from ..models import load_model
 from ..ops import metrics as metric_ops
+from ..parallel import data_parallel as dp
 from ..utils import checkpoint as ckpt_utils
 from ..utils import convert, device as device_utils
 from ..utils.timer import AverageMeter, Timer
@@ -63,6 +75,16 @@ class ScalarWriter:
             self._tb.close()
 
 
+class _NoWriter:
+    """The scalar stream of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def close(self):
+        pass
+
+
 def _classification_stats(logits: np.ndarray, labels: np.ndarray, valid: np.ndarray):
     """Precision / recall / F1 / TPR / TNR / balanced accuracy over the
     valid rows (trainer.py:306-341, 353-489); logit > 0 is sigmoid > 0.5."""
@@ -91,37 +113,30 @@ def _config_dict(config) -> dict:
             if isinstance(v, (int, float, str, bool, type(None)))}
 
 
-class WeightedProcrustesTrainer:
-    def __init__(self, config, data_loader, val_data_loader=None):
-        if int(config.num_devices or 1) > 1:
-            raise ValueError(
-                f"num_devices={config.num_devices}: data-parallel training "
-                "(parallel/, ROADMAP queue 1) is not ported yet; train on one "
-                "device (--num_devices 1)")
-        self.config = config
-        self.device = device_utils.resolve_device(config.device)
-        self.data_loader = data_loader
-        self.val_data_loader = val_data_loader
-        self.out_dir = config.out_dir
-        self.writer = ScalarWriter(self.out_dir)
-        self.log = logging.getLogger("trainer")
-
-        # Frozen FCGF + trainable 6D inlier net (trainer.py:60-108).
-        fcgf_spec = load_model(config.feat_model)
-        fcgf_cfg = fcgf_spec.make_config(
-            1, config.feat_model_n_out, conv1_kernel_size=config.feat_conv1_kernel_size,
-            normalize_feature=config.normalize_feature, D=3,
-            bn_momentum=config.bn_momentum)
-        inlier_in = {"coords": 6, "feats": 2 * config.feat_model_n_out}.get(
-            config.inlier_feature_type, 1)
-        inlier_spec = load_model(config.inlier_model)
-        inlier_cfg = inlier_spec.make_config(
-            inlier_in, 1, conv1_kernel_size=config.inlier_conv1_kernel_size,
-            normalize_feature=False, D=6, bn_momentum=config.bn_momentum)
+def build_nets(config, device, trees=None):
+    """The trainer's nets on ``device``: the frozen FCGF (eval mode, BN
+    unfolded, f32) from ``config.weights`` or a seeded generator, and the
+    trainable 6D inlier net (train mode) from another (trainer.py:60-108).
+    ``trees`` = (FCGF tree, inlier tree), each (params, state) in the JAX
+    layout, takes their place. Returns (fcgf, inlier)."""
+    fcgf_spec = load_model(config.feat_model)
+    fcgf_cfg = fcgf_spec.make_config(
+        1, config.feat_model_n_out, conv1_kernel_size=config.feat_conv1_kernel_size,
+        normalize_feature=config.normalize_feature, D=3,
+        bn_momentum=config.bn_momentum)
+    inlier_in = {"coords": 6, "feats": 2 * config.feat_model_n_out}.get(
+        config.inlier_feature_type, 1)
+    inlier_spec = load_model(config.inlier_model)
+    inlier_cfg = inlier_spec.make_config(
+        inlier_in, 1, conv1_kernel_size=config.inlier_conv1_kernel_size,
+        normalize_feature=False, D=6, bn_momentum=config.bn_momentum)
+    if trees is not None:
+        fcgf_tree, inlier_tree = trees
+    else:
         seed = int(getattr(config, "seed", 0))
         fcgf_tree = fcgf_spec.init_params(device_utils.generator(seed), fcgf_cfg)
-        inlier_tree = inlier_spec.init_params(device_utils.generator(seed + 1), inlier_cfg)
-
+        inlier_tree = inlier_spec.init_params(device_utils.generator(seed + 1),
+                                              inlier_cfg)
         # Pretrained FCGF from --weights (trainer.py:69-90).
         if config.weights:
             if str(config.weights).endswith((".pth", ".pt")):
@@ -130,33 +145,76 @@ class WeightedProcrustesTrainer:
             else:
                 sd = ckpt_utils.load_checkpoint(config.weights)["state_dict"]
                 fcgf_tree = (sd["params"], sd["state"])
-        self.fcgf = build_net(fcgf_spec, fcgf_tree, fcgf_cfg, False, torch.float32,
-                              self.device)
-        self.inlier = inlier_spec.module(inlier_cfg)
-        self.inlier.load_state_dict(convert.from_jax_params(*inlier_tree, inlier_cfg))
-        self.inlier.to(self.device).train()
+    fcgf = build_net(fcgf_spec, fcgf_tree, fcgf_cfg, False, torch.float32, device)
+    inlier = inlier_spec.module(inlier_cfg)
+    inlier.load_state_dict(convert.from_jax_params(*inlier_tree, inlier_cfg))
+    return fcgf, inlier.to(device).train()
 
+
+class WeightedProcrustesTrainer:
+    """``mesh``: this rank's ``data_parallel.Mesh`` when ``config.num_devices``
+    > 1 (one trainer a rank, each given the same loaders)."""
+
+    def __init__(self, config, data_loader, val_data_loader=None, mesh=None):
+        n_dev = int(config.num_devices or 1)
+        if config.batch_size % n_dev:
+            raise ValueError(f"batch_size {config.batch_size} not divisible by "
+                             f"num_devices {n_dev}")
+        if (mesh.size if mesh is not None else 1) != n_dev:
+            raise ValueError(
+                f"num_devices={n_dev} trains on {n_dev} ranks, one trainer each "
+                f"(mesh: {mesh}); launch them through train.main or "
+                "parallel.data_parallel.spawn")
+        self.mesh = mesh if n_dev > 1 else None
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        self.config = config
+        self.device = self.mesh.device if self.mesh is not None \
+            else device_utils.resolve_device(config.device)
+        self.data_loader = data_loader
+        self.val_data_loader = val_data_loader
+        self.out_dir = config.out_dir
+        self.writer = ScalarWriter(self.out_dir) if self.is_main else _NoWriter()
+        self.log = logging.getLogger("trainer")
+        self.log.disabled = not self.is_main
+
+        self.fcgf, self.inlier = build_nets(config, self.device)
         self.optimizer = ts.make_optimizer(config.optimizer, self.inlier.parameters(),
                                            config)
+        # The unsharded closures (validation's, and the step without a mesh).
         self.step_fn, self.loss_fn = ts.make_train_step(
             self.fcgf, self.inlier, config, self.optimizer)
+        self._val_loss_fn = self.loss_fn
+        if self.mesh is not None:
+            self.step_fn, self.loss_fn = dp.make_sharded_train_step(
+                self.mesh, self.fcgf, self.inlier, config, self.optimizer)
 
         self.start_epoch = 0
         self.best_val = -1e8
         self.best_val_epoch = -1
         self.best_val_metric = config.best_val_metric
         self.curr_iter = 0
-        with open(osp.join(self.out_dir, "config.json"), "w") as f:
-            json.dump(_config_dict(config), f, indent=2)
+        if self.is_main:
+            with open(osp.join(self.out_dir, "config.json"), "w") as f:
+                json.dump(_config_dict(config), f, indent=2)
         if config.resume:
             self._load_weights(config.resume)
+        if self.mesh is not None:
+            dp.replicate(self.mesh, self.fcgf)
+            dp.replicate(self.mesh, self.inlier)
 
     def epoch_lr(self, epoch: int) -> float:
         """ExponentialLR stepped once an epoch (trainer.py:110)."""
         return self.config.lr * (self.config.exp_gamma ** epoch)
 
-    def _batch(self, data_iter):
-        return ts.batch_to(next(data_iter)["pair_batch"], self.device)
+    def _batch(self, data_iter, local: bool = False):
+        """The next batch: tensors on the device; with a mesh (unless
+        ``local``), rank 0's collated (numpy) batch on every rank, which the
+        sharded step slices."""
+        if self.mesh is None or local:
+            return ts.batch_to(next(data_iter)["pair_batch"], self.device)
+        return dp.broadcast_object(
+            self.mesh, next(data_iter)["pair_batch"] if self.is_main else None)
+
 
     # ------------------------------------------------------------------
     def train(self):
@@ -167,9 +225,25 @@ class WeightedProcrustesTrainer:
         finally:
             self.writer.close()
 
+    def _validate(self) -> Dict[str, float] | None:
+        """``_valid_epoch``; with a mesh on rank 0 alone, the BN group off,
+        while the other ranks wait (they return None)."""
+        if self.mesh is None:
+            return self._valid_epoch()
+        out = None
+        if self.is_main:
+            self.inlier.set_bn_group(None)
+            try:
+                out = self._valid_epoch()
+            finally:
+                self.inlier.set_bn_group(self.mesh.group)
+        dp.barrier(self.mesh)
+        return out
+
     def _train(self):
         if self.config.test_valid and self.val_data_loader is not None:
-            for k, v in self._valid_epoch().items():
+            val_dict = self._validate()
+            for k, v in (val_dict or {}).items():
                 self.writer.add_scalar(f"val/{k}", v, self.start_epoch)
 
         for epoch in range(self.start_epoch, self.config.max_epoch):
@@ -180,7 +254,9 @@ class WeightedProcrustesTrainer:
             self._save_checkpoint(epoch)
             if self.val_data_loader is not None and \
                     (epoch + 1) % self.config.val_epoch_freq == 0:
-                val_dict = self._valid_epoch()
+                val_dict = self._validate()
+                if val_dict is None:  # a rank other than 0
+                    continue
                 for k, v in val_dict.items():
                     self.writer.add_scalar(f"val/{k}", v, epoch)
                 if self.best_val < val_dict[self.best_val_metric]:
@@ -193,7 +269,7 @@ class WeightedProcrustesTrainer:
         iter_size = config.iter_size
         data_timer, step_timer = Timer(), Timer()
         loss_meter = AverageMeter()
-        data_iter = iter(self.data_loader)
+        data_iter = iter(self.data_loader) if self.is_main else None
         num_iter = len(self.data_loader) // iter_size
         if config.num_train_iter > 0:
             num_iter = min(num_iter, config.num_train_iter)
@@ -218,7 +294,9 @@ class WeightedProcrustesTrainer:
                     data_timer.toc()
                     sub_loss, stats = self.loss_fn(batch)
                     (sub_loss / iter_size).backward()
-                    loss += float(sub_loss.detach()) / iter_size
+                    loss += float(stats["loss"].detach()) / iter_size
+                if self.mesh is not None:
+                    dp.all_reduce_grads(self.mesh, params)
                 if ts.grads_finite(params):
                     self.optimizer.step()
                 else:
@@ -253,8 +331,8 @@ class WeightedProcrustesTrainer:
         num_iter = min(len(self.val_data_loader), config.val_max_iter)
         with ts.kept_bn_state(self.inlier):
             for _ in range(num_iter):
-                batch = self._batch(it)
-                stats = self.loss_fn(batch)[1]
+                batch = self._batch(it, local=True)
+                stats = self._val_loss_fn(batch)[1]
                 labels = stats["labels"].cpu().numpy()
                 valid = stats["valid"].cpu().numpy()
                 cls = _classification_stats(stats["logits"].cpu().numpy(), labels, valid)
@@ -280,7 +358,9 @@ class WeightedProcrustesTrainer:
     def _save_checkpoint(self, epoch: int, filename: str = "checkpoint"):
         """The reference's checkpoint schema (trainer.py:527-549), with the
         JAX trainer's size knobs (--ckpt_dtype / --ckpt_compress /
-        --ckpt_save_optimizer / --ckpt_save_fcgf)."""
+        --ckpt_save_optimizer / --ckpt_save_fcgf). Rank 0 alone writes."""
+        if not self.is_main:
+            return
         path = osp.join(self.out_dir, filename + ".pkl")
         cfg = self.config
         fcgf = convert.to_jax_params(self.fcgf) if cfg.ckpt_save_fcgf else (None, None)

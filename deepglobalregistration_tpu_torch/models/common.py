@@ -38,6 +38,14 @@ class Net(nn.Module):
             if isinstance(m, Norm):
                 m.momentum = float(momentum)
 
+    def set_bn_group(self, group) -> None:
+        """The process group over which every train-mode BN takes its batch
+        statistics (None: this process's rows alone); data-parallel
+        training sets it to its mesh's group."""
+        for m in self.modules():
+            if isinstance(m, Norm):
+                m.group = group
+
     def round_weights(self, dtype: torch.dtype) -> None:
         """Round every weight to ``dtype`` (kept in f32 storage): the convs
         then compute exactly as on bf16 weights with f32 accumulation."""
@@ -74,7 +82,9 @@ class Norm(nn.Module):
     (a BN folded into the conv before it). ``seg`` = (cloud index of each
     row, clouds), for IN. BN in train mode normalises with the statistics
     of every row of the batch (all clouds, MinkowskiEngine's semantics) and
-    updates ``mean``/``var`` with ``momentum``; in eval mode it reads them."""
+    updates ``mean``/``var`` with ``momentum``; in eval mode it reads them.
+    ``group`` (``Net.set_bn_group``) makes the train-mode statistics those
+    of every rank's rows; eval-mode BN and IN stay local."""
 
     def __init__(self, norm_type: str, c: int):
         super().__init__()
@@ -83,6 +93,7 @@ class Norm(nn.Module):
         self.instance = norm_type in ("IN", "INBN")
         self.batch = norm_type in ("BN", "INBN")
         self.momentum = 0.1  # Net.set_bn_momentum sets cfg.bn_momentum
+        self.group = None  # Net.set_bn_group
         if self.batch:
             self.weight = nn.Parameter(torch.ones(c))
             self.bias = nn.Parameter(torch.zeros(c))
@@ -94,7 +105,8 @@ class Norm(nn.Module):
             feats = sc.instance_norm(feats, *seg)
         if self.batch and self.training:
             feats, mean, var = sc.batch_norm_train(
-                feats, self.weight, self.bias, self.mean, self.var, self.momentum)
+                feats, self.weight, self.bias, self.mean, self.var, self.momentum,
+                group=self.group)
             with torch.no_grad():
                 self.mean.copy_(mean)
                 self.var.copy_(var)

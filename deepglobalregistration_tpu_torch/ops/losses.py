@@ -18,30 +18,38 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def unbalanced_loss(logits: torch.Tensor, labels: torch.Tensor,
-                    mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Masked-mean BCE (core/loss.py:13-21 UnbalancedLoss)."""
+                    mask: torch.Tensor | None = None, total=None) -> torch.Tensor:
+    """Masked-mean BCE (core/loss.py:13-21 UnbalancedLoss). ``total``: the
+    rows are one rank's shard and ``total`` sums a count over the ranks
+    (``parallel/data_parallel.global_sum``); the mean is then over every
+    rank's masked rows, and the value returned is this rank's share of it
+    (the ranks' values sum to the loss of the whole batch)."""
     per = bce_with_logits(logits, labels.float())
     if mask is None:
-        return per.mean()
+        mask = torch.ones_like(per)
     m = mask.float()
-    return torch.sum(per * m) / torch.clamp(torch.sum(m), min=1.0)
+    cnt = torch.sum(m) if total is None else total(torch.sum(m))
+    return torch.sum(per * m) / torch.clamp(cnt, min=1.0)
 
 
 def balanced_loss(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None, total=None) -> torch.Tensor:
     """Class-balanced BCE: the mean within each class, each present class
     weighted 1/2; an absent class contributes 0 (core/loss.py:24-39
-    BalancedLoss skips it)."""
+    BalancedLoss skips it). ``total``: as ``unbalanced_loss``; a class's
+    count, and whether it is absent, are those of every rank's rows."""
     labels = labels.float()
     per = bce_with_logits(logits, labels)
     m = torch.ones_like(per) if mask is None else mask.float()
-    total = per.new_zeros(())
-    for cls in (0.0, 1.0):
-        sel = m * (labels == cls)
-        cnt = torch.sum(sel)
+    sels = [m * (labels == cls) for cls in (0.0, 1.0)]
+    counts = torch.stack([torch.sum(sel) for sel in sels])
+    if total is not None:
+        counts = total(counts)
+    out = per.new_zeros(())
+    for sel, cnt in zip(sels, counts):
         mean = torch.sum(per * sel) / torch.clamp(cnt, min=1.0)
-        total = total + torch.where(cnt > 0, mean, torch.zeros_like(mean)) / 2.0
-    return total
+        out = out + torch.where(cnt > 0, mean, torch.zeros_like(mean)) / 2.0
+    return out
 
 
 def high_dim_smooth_l1(X: torch.Tensor, Y: torch.Tensor, weights: torch.Tensor,

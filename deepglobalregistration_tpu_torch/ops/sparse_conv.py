@@ -142,30 +142,47 @@ def batch_norm_infer(feats: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     return ((feats.float() - mean) * inv * scale + bias).to(feats.dtype)
 
 
-def masked_moments(feats: torch.Tensor, mask: torch.Tensor | None = None):
+def masked_moments(feats: torch.Tensor, mask: torch.Tensor | None = None,
+                   group=None):
     """Per-channel mean and biased variance over the rows of [..., C] (every
     leading axis reduced) where ``mask`` [...] is set, in f32; returns
     (mean [C], var [C], count). The port's rows are flat over the batch and
     all valid, so it passes no mask; the JAX package's padded [B, N, C]
-    rows pass theirs."""
+    rows pass theirs.
+
+    ``group`` (a ``torch.distributed`` process group): each rank holds a
+    shard of the rows, and the moments are those of every rank's rows, in
+    two passes: an all-reduce of (sum x, count) gives the mean, then one of
+    sum (x - mean)^2 the variance. The all-reduces are differentiable
+    (``torch.distributed.nn``), so the backward crosses the ranks; every
+    rank must call this in the same order, a rank without rows included."""
     x = feats.float()
     axes = tuple(range(x.dim() - 1))
     m = torch.ones_like(x[..., :1]) if mask is None else mask.float()[..., None]
-    count = torch.clamp(m.sum(), min=1.0)
-    mean = (x * m).sum(axes) / count
-    return mean, (m * (x - mean) ** 2).sum(axes) / count, count
+    if group is None:
+        count = torch.clamp(m.sum(), min=1.0)
+        mean = (x * m).sum(axes) / count
+        return mean, (m * (x - mean) ** 2).sum(axes) / count, count
+    from torch.distributed.nn.functional import all_reduce
+
+    sums = all_reduce(torch.cat([(x * m).sum(axes), m.sum().reshape(1)]), group=group)
+    count = torch.clamp(sums[-1].detach(), min=1.0)
+    mean = sums[:-1] / count
+    var = all_reduce((m * (x - mean) ** 2).sum(axes), group=group) / count
+    return mean, var, count
 
 
 def batch_norm_train(feats: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      running_mean: torch.Tensor, running_var: torch.Tensor,
                      momentum: float, eps: float = 1e-5,
-                     mask: torch.Tensor | None = None):
+                     mask: torch.Tensor | None = None, group=None):
     """Train-mode BatchNorm (the JAX package's ``batch_norm_train``, torch
     semantics): normalise with the batch's biased variance; the running
     statistics become ``(1 - momentum) r + momentum x`` with the unbiased
     variance. Returns (out, new running mean, new running var); the
-    statistics carry no gradient."""
-    mean, var, count = masked_moments(feats, mask)
+    statistics carry no gradient. ``group``: the batch is every rank's rows
+    (``masked_moments``), so every rank writes the same statistics."""
+    mean, var, count = masked_moments(feats, mask, group)
     out = (feats.float() - mean) * torch.rsqrt(var + eps) * scale + bias
     with torch.no_grad():
         unbiased = var * count / torch.clamp(count - 1.0, min=1.0)

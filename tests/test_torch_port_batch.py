@@ -23,7 +23,8 @@ tolerance:
 - the two-pass rerun: every pair failing the gate gives, bit for bit, a
   fresh instance's ``register()`` calls in pair order (seeded RANSAC);
 - routing: sub-batches of 4, ``force_vmapped=False`` is ``register_many``,
-  ``mesh=`` raises.
+  a ``mesh=`` rank on another device than the instance's raises (the
+  fan-out itself: ``tests/test_torch_port_parallel_fanout.py``).
 """
 
 import jax
@@ -42,6 +43,7 @@ from deepglobalregistration_tpu_torch.config import default_config
 from deepglobalregistration_tpu_torch.core import registration
 from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
 from deepglobalregistration_tpu_torch.ops import icp, knn
+from deepglobalregistration_tpu_torch.parallel import data_parallel as dp
 from deepglobalregistration_tpu_torch.utils.convert import from_jax_params
 
 T_ = torch.from_numpy
@@ -264,5 +266,5 @@ def test_register_batch_routing(batch_of_both, monkeypatch):
     np.testing.assert_allclose(T5[3:], T5[:2], atol=1e-3)  # the same pairs again
     np.testing.assert_array_equal(dgr.register_batch(xs[:2], ys[:2]),
                                   dgr.register_many(xs[:2], ys[:2]))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        dgr.register_batch(xs, ys, mesh=object())
+    with pytest.raises(ValueError, match="this instance on cpu"):
+        dgr.register_batch(xs, ys, mesh=dp.Mesh(("cuda:0",), "nccl"))

@@ -137,7 +137,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "ops/losses.py", "ops/sparse_conv.py", "models/common.py",
                  "utils/convert.py", "core/correspondence.py",
                  "core/train_step.py", "core/trainer.py", "core/fcgf_train.py",
-                 "train.py"):
+                 "train.py", "parallel/__init__.py", "parallel/data_parallel.py",
+                 "tools/parallel_bench.py"):
         assert f"deepglobalregistration_tpu_torch/{path}" in walked
     banned = ("jax", "jaxlib", "optax", "ml_dtypes", "deepglobalregistration_tpu")
     for f in files:

@@ -103,16 +103,40 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      in turns); ``make_mesh(2)`` and ``train.main --num_devices 2`` raise
      with one card, NCCL on one shared card raises; with 2 or more cards
      the NCCL dry runs;
- 15. print one JSON line describing every kernel, the card's line, and as
+ 15. the tail (``phase_tail``): (a) ``tools/synthetic_e2e.main(["--quick"])``
+     (room profile, full-width nets: FCGF self-training, inlier-net
+     training with validation, the 3DMatch-style benchmark): finite stage-A
+     losses, every checkpoint, the stats npz (1, 2, 5), every key of the JAX
+     tool's summary, the 1-NN launches of each stage; then the hit probe's
+     ``nn1_mma_batched`` launch held to its unbatched launches and the plain
+     version, and timed; (b) the TSDF tool (``utils/integration.py``) on a
+     seeded 10-frame 640 x 480 depth sequence of a box room: the CLI and
+     the volume at the default 1 cm over 6 x 6 x 4 m (ms a frame, peak
+     memory, points), and on a 2 cm cut over 2 x 2 x 2 m the card's volumes
+     against the port's CPU run (1e-6, equal point sets); (c)
+     ``utils/profiling.trace`` around one bench register(): the kernel table
+     must name both 1-NN kernels and the line join must put time on lines
+     of the port; (d) ``export_bench_weights`` on stage A's checkpoint,
+     loaded by ``DeepGlobalRegistration``; ``golden_fcgf`` on the committed
+     weights against their own identity-order features (only "identity"
+     passes); ``ransac_sweep`` at two trials a budget;
+ 16. print one JSON line describing every kernel, the card's line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 Each path (4-7, 9, 10, 11's default configuration and .pth runs, 12's
 demo, 3DMatch loop, KITTI ground truth and KITTI loop, 13's train step and
 ``train.main``, 14's data-parallel step and fan-out, counted in each
-rank's process) is driven with the kernels' launch counts set to 0 just
-before it and read just after; launches made to compare a kernel with its
-plain version are not counted. Imports nothing of JAX. Exits non-zero when
-no CUDA device is visible.
+rank's process, 15's chain) is driven with the kernels' launch counts set
+to 0 just before it and read just after; launches made to compare a kernel
+with its plain version are not counted. Imports nothing of JAX. Exits
+non-zero when no CUDA device is visible.
+
+``python3 chip_smoke.py --chain [--keep DIR] [synthetic_e2e flags]`` runs instead the
+chain at full size (``chain_full``): the chain, each stage's 1-NN launch
+timed at its own shapes, and with ``--profile lidar`` register()'s ICP
+stage with ``icp_candidates`` "auto" and "off" in turns on the KITTI-scale
+pairs from the trained checkpoint; results go to ``<keep>/e2e_<profile>/``
+(``--keep DIR``, default ``outputs``, relative to the checkout).
 """
 
 from __future__ import annotations
@@ -450,32 +474,32 @@ def breakdown(dgr, pair, sec_per_pair: float, label: str = "bench") -> None:
 
 
 def profile_busy(fn, unprofiled_s: float) -> dict | None:
-    """One fn() under torch.profiler: its wall time, the CUDA kernels' busy
-    time and launches, the top ten kernels, and the busy share over the
-    profiled wall time and over ``unprofiled_s`` (the same work's time
-    without the profiler). None when the profiler saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One fn() under ``utils/profiling.trace`` (torch.profiler, no Python
+    stacks): its wall time, the CUDA kernels' busy time and launches, the
+    top ten kernels, and the busy share over the profiled wall time and over
+    ``unprofiled_s`` (the same work's time without the profiler). None when
+    the trace holds no kernel time."""
+    import tempfile
+
+    from deepglobalregistration_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # Kernel rows only (operator rows repeat their kernels' device time).
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp, with_stack=False):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_ms, launches = profiling.kernel_totals(tmp)
+        top = profiling.summarize_trace(tmp, top=10)
     if dev_ms <= 0:
         print("device busy share: not measured (the profiler saw no device time)")
         return None
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     return {"profiled_wall_ms": wall * 1e3, "device_kernel_ms": dev_ms,
             "device_busy_share_profiled": dev_ms / (wall * 1e3),
             "device_busy_share_unprofiled": dev_ms / (unprofiled_s * 1e3),
-            "device_kernel_launches": sum(e.count for e in kernels),
-            "top_kernels_ms": {e.key[:70]: e.self_device_time_total / 1e3
-                               for e in top}}
+            "device_kernel_launches": launches,
+            "top_kernels_ms": {k[:70]: v for k, v in top.items()}}
 
 
 def safeguard(dgr, pair) -> None:
@@ -2198,6 +2222,399 @@ def phase_parallel_nccl(n: int) -> dict:
     return out
 
 
+# The tail (15): the synthetic train -> validate -> benchmark chain, TSDF
+# fragment integration, the profiler and the tools.
+# The summary keys of the repo's tools/synthetic_e2e.py (docs/e2e_r04_smoke).
+CHAIN_KEYS = ("n_points", "fcgf_steps", "max_epoch", "iters_per_epoch",
+              "fcgf_final_loss", "fcgf_val_hit_ratio", "best_val", "best_val_epoch",
+              "recall", "te", "re", "mean_time_s", "n_pairs", "stats_npz")
+TSDF_FRAMES = 10
+TSDF_CARD_CPU_TOL = 1e-6
+TSDF_CUT = dict(voxel_size=0.02, bbox_min=(-1, -1, 0), bbox_max=(1, 1, 2))
+NN1_KERNELS = {"nn1_mma": "mma_kernel", "nn1_scan": "scan_kernel"}  # trace names
+
+
+def room_depth_sequence(seed: int = 0, frames: int = TSDF_FRAMES, h: int = 480,
+                        w: int = 640):
+    """A seeded depth sequence (meters, f32 [h, w]) of a box room 5.6 x 5.6 x
+    2.9 m inside the TSDF tool's default volume, rendered in numpy from
+    cameras at seeded positions, headings and down-tilts; returns (depths,
+    camera->world poses [frames, 4, 4], K)."""
+    rng = np.random.RandomState(seed)
+    K = np.array([[525.0, 0, (w - 1) / 2], [0, 525.0, (h - 1) / 2], [0, 0, 1]])
+    lo, hi = np.array([-2.8, -2.8, 0.1]), np.array([2.8, 2.8, 3.0])
+    v, u = np.mgrid[0:h, 0:w]
+    rays = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1],
+                     np.ones_like(u, float)], -1).reshape(-1, 3)
+    depths, poses = [], []
+    for _ in range(frames):
+        yaw, pitch = rng.uniform(0, 2 * np.pi), rng.uniform(-0.6, 0.0)
+        c = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1), rng.uniform(1.2, 1.8)])
+        fwd = np.array([np.cos(pitch) * np.cos(yaw), np.cos(pitch) * np.sin(yaw),
+                        np.sin(pitch)])
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd], 1)  # camera -> world
+        d = rays @ R.T
+        with np.errstate(divide="ignore"):
+            s = np.where(d > 0, (hi - c) / d, np.where(d < 0, (lo - c) / d, np.inf))
+        depth = s.min(1).reshape(h, w) + rng.randn(h, w) * 0.002
+        pose = np.eye(4)
+        pose[:3, :3], pose[:3, 3] = R, c
+        depths.append(depth.astype(np.float32))
+        poses.append(pose)
+    return depths, np.stack(poses), K
+
+
+def _tail_chain(knn, tmp: Path) -> dict:
+    """(a) synthetic_e2e --quick (room profile, full-width nets) with the
+    counts set to 0 just before and read just after; then the hit probe's
+    launch held against its unbatched launches and the plain version."""
+    from deepglobalregistration_tpu_torch.core import train_step as ts
+    from deepglobalregistration_tpu_torch.data.factory import make_data_loader
+    from deepglobalregistration_tpu_torch.tools import synthetic_e2e as e2e
+    from deepglobalregistration_tpu_torch.utils import checkpoint, convert
+
+    out = tmp / "chain"
+    argv = ["--quick", "--out_dir", str(out)]
+    torch.cuda.synchronize()
+    reset_counts(knn)
+    t0 = time.time()
+    summary = e2e.main(argv)
+    torch.cuda.synchronize()
+    chain_s = time.time() - t0
+    launches = counts(knn)
+    stats = np.load(out / "3dmatch-stats.npz")["stats"]
+    r = {k: summary.get(k) for k in ("fcgf_losses", "fcgf_val_hit_ratio", "best_val",
+                                     "recall", "te", "re", "mean_time_s", "n_pairs",
+                                     "stage_s", "card")}
+    r.update(chain_s=chain_s, launches=launches, stats_shape=list(stats.shape),
+             launches_by_stage=summary.get("launches"))
+    print(json.dumps({"tail_chain": r}), flush=True)
+    missing = [k for k in CHAIN_KEYS if k not in summary]
+    if missing:
+        fail(f"tail chain: summary.json lacks {missing}")
+    if not np.isfinite(summary["fcgf_losses"]).all():
+        fail(f"tail chain: stage A losses {summary['fcgf_losses']}")
+    for f in ("fcgf_selftrained.pkl", "checkpoint.pkl", "best_val_checkpoint.pkl"):
+        if not (out / f).exists():
+            fail(f"tail chain: {f} not written")
+    if stats.shape != (1, summary["n_pairs"], 5) or summary["n_pairs"] != 2:
+        fail(f"tail chain: stats npz {stats.shape}, n_pairs {summary['n_pairs']}")
+    by = summary["launches"]
+    if by["a"]["nn1_mma_batched"] < 1 or by["b"]["nn1_mma_batched"] < 1 or \
+            by["c"]["nn1_mma"] < 2 or by["c"]["nn1_scan"] < 2:
+        fail(f"tail chain: 1-NN launches by stage {by}")
+
+    # The hit probe's launch on stage A's net and the probe batch.
+    config, _ = e2e.build_config(e2e.parse_args(argv))
+    net = e2e.fcgf_net(config, "cuda")
+    sd = checkpoint.load_checkpoint(out / "fcgf_selftrained.pkl")["state_dict"]
+    net.load_state_dict(convert.from_jax_params(sd["params"], sd["state"], net.cfg))
+    batch = ts.batch_to(next(iter(make_data_loader(config, "val", config.batch_size)))
+                        ["pair_batch"], "cuda")
+    feats, idx = e2e.probe_match(net, batch)
+    b = batch.num0.shape[0]
+    F0, F1 = feats[:b].contiguous(), feats[b:].contiguous()
+    num0, num1 = batch.num0.tolist(), batch.num1.tolist()
+    if not torch.equal(knn.nn1_mma_batched(F0, F1, knn.pair_counts(num0, num1, "cuda"))[0],
+                       idx):
+        fail("tail chain: the hit probe's indices differ from nn1_mma_batched's")
+    r["probe_max_abs_err"] = check_nn1_batched(knn, F0, F1, num0, num1,
+                                               "tail hit probe")["max_abs_err"]
+    r["probe_timing"] = time_nn1_batched(knn, F0, F1, num0, num1, "tail hit probe")
+    r["probe_hit_ratio_again"] = e2e.hit_ratio(
+        batch, idx, config.voxel_size * config.positive_pair_search_voxel_size_multiplier)
+    r["out"] = out
+    return r
+
+
+def _tail_tsdf(tmp: Path) -> dict:
+    """(b) the TSDF tool at its default 1 cm over 6 x 6 x 4 m (the CLI, then
+    the volume frame by frame for ms a frame and peak memory), and on a cut
+    volume the card against the port's own CPU run."""
+    from deepglobalregistration_tpu_torch.utils import integration
+
+    depths, poses, K = room_depth_sequence()
+    ddir = tmp / "depth"
+    ddir.mkdir()
+    for i, d in enumerate(depths):
+        np.save(ddir / f"{i:03d}.npy", d)
+    np.savez(tmp / "poses.npz", poses=poses)
+    np.save(tmp / "K.npy", K)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pcd = integration.main(["--depth_dir", str(ddir), "--pose_file", str(tmp / "poses.npz"),
+                            "--intrinsics", str(tmp / "K.npy"),
+                            "--out", str(tmp / "fragment.npz")])
+    cli_s = time.time() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vol = integration.TSDFVolume(origin=np.asarray((-3, -3, 0), np.float32),
+                                 voxel_size=0.01, dims=(600, 600, 400), sdf_trunc=0.04,
+                                 device="cuda")
+    ms = []
+    for d, pose in zip(depths, poses):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vol.integrate(d, K, np.linalg.inv(pose))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    pts = vol.extract_point_cloud()
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    observed = int((vol.weight > 0).sum())
+    del vol
+    torch.cuda.empty_cache()
+
+    vols = {}
+    for dev in ("cuda", "cpu"):
+        lo, hi, vs = TSDF_CUT["bbox_min"], TSDF_CUT["bbox_max"], TSDF_CUT["voxel_size"]
+        vols[dev] = integration.TSDFVolume(
+            origin=np.asarray(lo, np.float32), voxel_size=vs,
+            dims=tuple(int(np.ceil((b - a) / vs)) for a, b in zip(lo, hi)),
+            sdf_trunc=0.04, device=dev)
+        for d, pose in zip(depths, poses):
+            vols[dev].integrate(d, K, np.linalg.inv(pose))
+    gap = {k: float((getattr(vols["cuda"], k).cpu() - getattr(vols["cpu"], k)).abs().max())
+           for k in ("tsdf", "weight")}
+    p_card, p_cpu = vols["cuda"].extract_point_cloud(), vols["cpu"].extract_point_cloud()
+    r = {"frames": len(depths), "image": list(depths[0].shape), "dims": [600, 600, 400],
+         "voxels": 600 * 600 * 400, "ms_per_frame_median": float(np.median(ms)),
+         "ms_per_frame": ms, "extract_ms": extract_ms, "peak_mem_gib": peak,
+         "observed_voxels": observed, "points": len(pts), "cli_s": cli_s,
+         "cli_points": len(pcd), "cut": {**TSDF_CUT, "gap": gap, "tol": TSDF_CARD_CPU_TOL,
+                                         "points_card": len(p_card),
+                                         "points_cpu": len(p_cpu)}}
+    print(json.dumps({"tail_tsdf": r}), flush=True)
+    if len(pts) < 10000 or len(pcd) != len(pts):
+        fail(f"tail TSDF: {len(pts)} points at the default volume, {len(pcd)} "
+             "through the CLI")
+    if max(gap.values()) > TSDF_CARD_CPU_TOL or not np.array_equal(p_card, p_cpu) \
+            or len(p_cpu) < 1000:
+        fail(f"tail TSDF: card vs CPU gaps {gap}, points {len(p_card)} / {len(p_cpu)}")
+    return r
+
+
+def _tail_profiler(bench_pair) -> dict:
+    """(c) ``utils/profiling.trace`` around one bench register(): the kernel
+    table must name both 1-NN kernels, and the line attribution must put
+    time on lines of the port."""
+    import tempfile
+
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
+    from deepglobalregistration_tpu_torch.utils import profiling
+
+    dgr = DeepGlobalRegistration(default_config(bf16=True, **BENCH), device="cuda")
+    dgr.register(bench_pair[0], bench_pair[1])  # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            dgr.register(bench_pair[0], bench_pair[1])
+            torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kernels = profiling.summarize_trace(tmp, top=10 ** 6)
+        by_line = profiling.attribute_trace(tmp, top=10 ** 6, by="line")
+        by_op = profiling.attribute_trace(tmp, top=10, by="op")
+        parse_s = time.perf_counter() - t0
+    total = sum(kernels.values())
+    pkg = {k: v for k, v in by_line.items()
+           if k.startswith("deepglobalregistration_tpu_torch/")}
+    nn1 = {name: sum(v for k, v in kernels.items() if tag in k)
+           for name, tag in NN1_KERNELS.items()}
+    r = {"traced_s": trace_s, "parse_s": parse_s, "kernel_ms": total,
+         "nn1_kernel_ms": nn1, "package_line_ms": sum(pkg.values()),
+         "top_kernels_ms": dict(list(kernels.items())[:8]),
+         "top_lines_ms": dict(list(by_line.items())[:10]), "top_ops_ms": by_op}
+    print(json.dumps({"tail_profiler": r}), flush=True)
+    if not all(v > 0 for v in nn1.values()):
+        fail(f"tail profiler: the trace does not name both 1-NN kernels: {nn1}")
+    if not pkg or sum(pkg.values()) <= 0:
+        fail("tail profiler: no kernel time on a line of the port")
+    return r
+
+
+def _tail_tools(tmp: Path, chain_out: Path, bench_pair) -> dict:
+    """(d) export_bench_weights on stage A's checkpoint, loaded by
+    DeepGlobalRegistration; golden_fcgf on the committed weights against a
+    golden npz of their own identity-order features; ransac_sweep at two
+    trials a budget."""
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
+    from deepglobalregistration_tpu_torch.tools import (export_bench_weights,
+                                                        golden_fcgf, ransac_sweep)
+
+    r = {}
+    exported = tmp / "bench_fcgf.pkl"
+    export_bench_weights.main(["--ckpt", str(chain_out / "fcgf_selftrained.pkl"),
+                               "--out", str(exported)])
+    dgr = DeepGlobalRegistration(default_config(**dict(BENCH, weights=str(exported))),
+                                 device="cuda")
+    T = dgr.register(bench_pair[0], bench_pair[1])
+    r["export"] = {"mib": exported.stat().st_size / 2 ** 20, "pose_finite":
+                   bool(np.isfinite(T).all()), "voxel_size": dgr.voxel_size}
+    if not np.isfinite(T).all():
+        fail("tail tools: register() from the exported weights gave a non-finite pose")
+
+    spec, cfg, params, state, _ = golden_fcgf.load_fcgf(str(WEIGHTS))
+    xyz = (np.random.RandomState(0).rand(5000, 3) * 3.0).astype(np.float32)
+    feats, coords = golden_fcgf.run_fcgf(spec, cfg, params, state, xyz, 0.05, "cuda")
+    np.savez(tmp / "golden.npz", xyz=xyz, feats=feats, coords=coords)
+    t0 = time.time()
+    res = golden_fcgf.main(["--weights", str(WEIGHTS), "--golden", str(tmp / "golden.npz")])
+    r["golden"] = {"s": time.time() - t0, **res}
+    if [n for n, v in res.items() if v["pass"]] != ["identity"]:
+        fail(f"tail tools: golden_fcgf verdict {res}")
+
+    t0 = time.time()
+    res = ransac_sweep.main(["--trials", "2"])
+    r["ransac_sweep"] = {"s": time.time() - t0, **res}
+    print(json.dumps({"tail_tools": r}), flush=True)
+    # At a 0.2 inlier ratio a 4096-hypothesis budget draws a clean sample
+    # with probability 0.999.
+    if not all(v["recall"] == 1.0 for v in res.values()
+               if v["inlier_ratio"] >= 0.2 and v["hypotheses"] >= 4096):
+        fail("tail tools: ransac_sweep missed a pair at inlier ratio 0.2")
+    return r
+
+
+def phase_tail(knn, bench_pair) -> dict:
+    """The tail (15): (a) the chain, (b) TSDF, (c) the profiler, (d) the tools."""
+    import tempfile
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        chain = _tail_chain(knn, tmp)
+        torch.cuda.empty_cache()
+        tsdf = _tail_tsdf(tmp)
+        prof = _tail_profiler(bench_pair)
+        tools = _tail_tools(tmp, chain.pop("out"), bench_pair)
+    torch.cuda.empty_cache()
+    print(f"tail: {time.time() - t0:.1f} s", flush=True)
+    return {"chain": chain, "tsdf": tsdf, "profiler": prof, "tools": tools}
+
+
+def chain_full(argv) -> int:
+    """``python3 chip_smoke.py --chain [--keep DIR] [synthetic_e2e flags]``: the chain at
+    full size on the card (run alone, not by the default smoke), then each
+    stage's 1-NN launch timed at its own shapes, and with ``--profile lidar``
+    register()'s ICP stage with icp_candidates "auto" and "off" in turns on
+    the KITTI-scale pairs from the trained checkpoint. The run's
+    summary.json, scalars, stats and ``chain_kernels.json`` go to
+    ``<keep>/e2e_<profile>/`` (``--keep DIR`` before the chain's flags,
+    default ``outputs``); the checkpoints stay in a temporary directory."""
+    import shutil
+    import tempfile
+
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core import train_step as ts
+    from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
+    from deepglobalregistration_tpu_torch.data.factory import make_data_loader
+    from deepglobalregistration_tpu_torch.ops import knn, se3
+    from deepglobalregistration_tpu_torch.tools import synthetic_e2e as e2e
+    from deepglobalregistration_tpu_torch.utils import checkpoint, convert, cuda_build, device
+    from deepglobalregistration_tpu_torch.utils.synthetic import lidar_like_pair
+
+    device.set_precision()
+    cuda_build.build()
+    print(card_line(), flush=True)
+    keep_dir = "outputs"
+    if argv[:1] == ["--keep"]:
+        keep_dir, argv = argv[1], argv[2:]
+    args = e2e.parse_args(argv)
+    keep = ROOT / keep_dir / f"e2e_{args.profile}"
+    tmp = tempfile.mkdtemp()
+    if "--out_dir" not in argv:
+        argv = argv + ["--out_dir", tmp]
+        args = e2e.parse_args(argv)
+    out = Path(args.out_dir)
+    summary = e2e.main(argv)
+    keep.mkdir(parents=True, exist_ok=True)
+    for f in ("summary.json", "scalars.jsonl", "config.json", "3dmatch-stats.npz",
+              "kitti-stats.npz"):
+        if (out / f).exists():
+            shutil.copy(out / f, keep / f)
+
+    config, run = e2e.build_config(args)
+    fcgf_ckpt = args.skip_a or str(out / "fcgf_selftrained.pkl")
+    best = args.skip_b or str(out / "best_val_checkpoint.pkl")
+    net = e2e.fcgf_net(config, "cuda")
+    sd = checkpoint.load_checkpoint(fcgf_ckpt)["state_dict"]
+    net.load_state_dict(convert.from_jax_params(sd["params"], sd["state"], net.cfg))
+    rows = {}
+    for label, phase in (("probe", "val"), ("train_match", "train")):
+        batch = ts.batch_to(next(iter(make_data_loader(config, phase, config.batch_size)))
+                            ["pair_batch"], "cuda")
+        feats, idx = e2e.probe_match(net, batch)
+        b = batch.num0.shape[0]
+        F0, F1 = feats[:b].contiguous(), feats[b:].contiguous()
+        num0, num1 = batch.num0.tolist(), batch.num1.tolist()
+        err = check_nn1_batched(knn, F0, F1, num0, num1, f"chain {label}")["max_abs_err"]
+        rows[label] = dict(time_nn1_batched(knn, F0, F1, num0, num1, f"chain {label}"),
+                           max_abs_err=err, bucket=int(F0.shape[1]))
+    del net, feats, F0, F1
+    config.weights = best
+    dgr = DeepGlobalRegistration(config, device="cuda")
+    if run.lidar:
+        item = next(iter(make_data_loader(config, "test", 1, shuffle=False)))
+        pair = (item["pcd0"][0], item["pcd1"][0])
+    else:
+        from deepglobalregistration_tpu_torch.data.synthetic import SyntheticTrajectoryDataset
+
+        _, x0, x1, _ = SyntheticTrajectoryDataset(n_points=run.n_points)[0]
+        pair = (x0, x1)
+    T = dgr.register(*pair)
+    x0, x1 = dgr._as_tensor(pair[0]), dgr._as_tensor(pair[1])
+    with torch.no_grad():
+        sel0, sel1, _, _, a0, a1, _ = dgr.features(x0, x1)
+    moved = se3.apply_transform(sel0, torch.as_tensor(T, dtype=torch.float32,
+                                                      device="cuda"))
+    rows["eval_match"] = time_nn1(knn, a0, a1, "chain eval feature match (pair 0)")
+    rows["eval_scan"] = time_nn1(knn, moved.contiguous(), sel1,
+                                 "chain eval ICP scan (pair 0)", bitwise=True)
+    r = {"profile": args.profile, "card": card_line(), "summary": summary,
+         "kernels": rows}
+    if run.lidar:
+        # Section 2 item C: the KITTI-scale pairs with the trained weights.
+        del dgr
+        torch.cuda.empty_cache()
+        dgr = DeepGlobalRegistration(default_config(bf16=True, **dict(KITTI, weights=best)),
+                                     device="cuda")
+        pairs = []
+        for seed in range(3):
+            xyz0, xyz1, R, t = lidar_like_pair(seed=seed)
+            T_gt = np.eye(4, dtype=np.float32)
+            T_gt[:3, :3], T_gt[:3, 3] = R, t
+            pairs.append((xyz0, xyz1, T_gt))
+        dgr.register(pairs[0][0], pairs[0][1])  # warm-up
+        dgr.stage_timers["icp"].reset()
+        modes, errs, falls = [], [], []
+        for xyz0, xyz1, T_gt in pairs:
+            before = dgr.cand_fallbacks
+            errs.append(pose_errors(dgr.register(xyz0, xyz1), T_gt))
+            modes.append(dgr.last_iterations.get("icp_mode"))
+            falls.append(dgr.cand_fallbacks - before)
+        torch.cuda.synchronize()
+        # In turns: auto, off, auto, off, auto.
+        first = icp_auto_vs_off(dgr, pairs, dgr.stage_timers["icp"].avg)
+        second = icp_auto_vs_off(dgr, pairs, first["icp_auto_s_per_pair"][-1])
+        r["icp_auto_vs_off"] = {"turns": [first, second], "icp_mode_per_pair": modes,
+                                "cand_fallbacks_per_pair": falls,
+                                "rre_deg_per_pair": [e[0] for e in errs],
+                                "rte_m_per_pair": [e[1] for e in errs],
+                                "inlier_trained": dgr.inlier_trained}
+    (keep / "chain_kernels.json").write_text(json.dumps(r, indent=1, default=str))
+    print(json.dumps({"chain_full": r}, default=str), flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def _tree_leaves(tree):
     for k in sorted(tree):
         v = tree[k]
@@ -2215,6 +2632,8 @@ def main() -> int:
         print("FAIL: the port's package is not beside chip_smoke.py", flush=True)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--chain"]:
+        return chain_full(sys.argv[2:])
     from deepglobalregistration_tpu_torch.ops import knn
     from deepglobalregistration_tpu_torch.utils import cuda_build, device
 
@@ -2236,6 +2655,7 @@ def main() -> int:
     ev = phase_eval(knn, e["pairs"], e["Ts"])
     tr = phase_train(knn)
     par = phase_parallel(knn)
+    tail = phase_tail(knn, e["pairs"][0])
     feat, scan = e["timings"]
     kfeat, kscan = kitti["timings"]
     dfeat, dscan = models["default_timings"]
@@ -2263,7 +2683,8 @@ def main() -> int:
             ("staged", staged["staged"]), ("knn_cpu", staged["knn_cpu"]),
             ("default_config", models["default_launches"]),
             ("pth", models["pth_launches"]), ("eval_demo", ev["demo"]),
-            ("eval_3dmatch", ev["3dmatch"]), ("eval_kitti", ev["kitti"]))})
+            ("eval_3dmatch", ev["3dmatch"]), ("eval_kitti", ev["kitti"]),
+            ("tail_chain", tail["chain"]["launches"]))})
         if name == "nn1_scan":  # the KITTI loader's ground-truth ICP
             g = ev["kitti_gt_timing"]
             entry.update({f"{k}_kitti_gt": g[k] for k in (
@@ -2294,7 +2715,8 @@ def main() -> int:
                      step[name] for rank in par["train"]["launches_per_rank"]
                      for step in rank),
                  "launches_parallel_fanout": sum(
-                     lc[name] for lc in par["fanout"]["launches_per_rank"])}
+                     lc[name] for lc in par["fanout"]["launches_per_rank"]),
+                 "launches_tail_chain": tail["chain"]["launches"][name]}
         if name == "nn1_mma_batched":
             k = batch_kitti["timing"]
             entry.update({f"{key}_kitti": k[key] for key in (
@@ -2308,7 +2730,12 @@ def main() -> int:
             entry["launches_train"] = tr["launches"][name]
             entry["launches_train_main"] = tr["trainer"]["launches"][name]
             entry["max_abs_err"] = max(entry["max_abs_err"], tr["max_abs_err"],
-                                       *par["train"]["match_max_abs_err_ranks"])
+                                       *par["train"]["match_max_abs_err_ranks"],
+                                       tail["chain"]["probe_max_abs_err"])
+            p = tail["chain"]["probe_timing"]  # the chain's hit probe
+            entry.update({f"{key}_tail_probe": p[key] for key in (
+                "ms", "unbatched_sum_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "shape")})
         entries.append(entry)
     print(json.dumps({"kernels": entries + gather_entries}), flush=True)
     print(card, flush=True)

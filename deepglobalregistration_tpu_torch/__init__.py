@@ -11,14 +11,18 @@ program; the train step, the trainer, correspondence labels and the FCGF
 hardest-contrastive step), ``utils/`` (device policy, checkpoint loading
 of the reference's ``.pth`` files and loading and writing the JAX
 package's native ones, weight conversion both ways, BN folding, PLY and
-trajectory I/O, timers),
-``tools/`` (the gather probe, ``register_batch`` against ``register_many``),
+trajectory I/O, timers, TSDF fragment integration, torch.profiler traces),
+``tools/`` (the gather probe, ``register_batch`` against ``register_many``,
+the synthetic train -> validate -> benchmark chain, the bench-weights
+export, the golden K-order check, the RANSAC budget sweep),
 ``data/`` (the 3DMatch, KITTI and synthetic pair datasets, collation into
 ``PairBatch`` and the loader factory; the KITTI ground-truth ICP runs on the
 card), ``native.py`` (the ctypes binding of the repo's ``native/dgr_host.cpp``
 host engine, built with ``g++`` into ``_build/``), ``config.py`` (every flag of
 the JAX package's parser, plus ``--device``), and the evaluation entry points
-``demo.py``, ``scripts/test_3dmatch.py`` and ``scripts/test_kitti.py`` and
+``demo.py``, ``scripts/test_3dmatch.py`` and ``scripts/test_kitti.py``
+(``scripts/analyze_stats.py`` reads their stats; ``scripts/train_*.sh`` are
+the training recipes) and
 the training entry point ``train.py`` (each ``main(argv=None)``, on the card
 unless ``--device cpu``).
 

@@ -56,8 +56,10 @@ class InfSampler(torch.utils.data.Sampler):
 
 
 def make_data_loader(config, phase, batch_size, num_workers: int = 0,
-                     shuffle: bool | None = None):
-    """Phase-dependent augmentation policy + loader (data_loaders.py:17-54)."""
+                     shuffle: bool | None = None, multiprocessing_context=None):
+    """Phase-dependent augmentation policy + loader (data_loaders.py:17-54).
+    ``multiprocessing_context`` (e.g. "spawn") starts the workers; a caller
+    that has initialised CUDA must not let them fork."""
     assert phase in ["train", "trainval", "val", "test"]
     if shuffle is None:
         shuffle = phase != "test"
@@ -92,5 +94,6 @@ def make_data_loader(config, phase, batch_size, num_workers: int = 0,
         batch_size=batch_size,
         collate_fn=collation_fn,
         num_workers=num_workers,
+        multiprocessing_context=multiprocessing_context if num_workers > 0 else None,
         sampler=InfSampler(dset, shuffle) if shuffle else None,
         drop_last=False)

@@ -56,9 +56,21 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      ``register()`` calls' own spread; the batched kernels at that path's
      match and ICP-scan shapes (bit for bit the unbatched launches, timed
      beside the unbatched launches, the plain version, ``torch.cdist`` and
-     the bound); ``bench.py``'s 8-pair stream (two sub-batches) against
-     ``register_many`` in turns, with each run's peak memory; one profiled
-     batch call;
+     the bound); ``bench.py``'s 8-pair stream in turns (batch, many,
+     loop, loop, many, batch) through ``register_batch`` (two sub-batches),
+     ``register_many`` (the window: 3 pairs on worker threads, each on its
+     own CUDA stream) and the ``register()`` loop, with each turn's peak
+     memory: every window and loop turn's 1-NN launches exactly those its
+     pairs' records report, the window at the bench's pose limits with the
+     loop's gate branch and ICP mode on every pair, the batch's gate bits,
+     ``cand_ok`` and reruns the loop's and each batch pose within
+     ``BATCH_LOOP_DEG`` / ``BATCH_LOOP_M`` of the loop's; one profiled call
+     of each form (the busy share counts overlapping kernels once); then a
+     child process under ``torch.use_deterministic_algorithms``
+     (``--deterministic-stream``), which holds ``register_many`` bit for
+     bit against two loops (or, where it names an op without a
+     deterministic implementation, within the loops' own gap) and gives
+     what deterministic mode costs ``register()``;
  10. ``register_batch`` on the three KITTI-scale pairs (the 65536 bucket, so
      candidate-list ICP without the checked wrapper): finite poses, a rerun
      for exactly the pairs whose gate bit or ``cand_ok`` is false, the time
@@ -133,10 +145,12 @@ non-zero when no CUDA device is visible.
 
 ``python3 chip_smoke.py --chain [--keep DIR] [synthetic_e2e flags]`` runs instead the
 chain at full size (``chain_full``): the chain, each stage's 1-NN launch
-timed at its own shapes, and with ``--profile lidar`` register()'s ICP
-stage with ``icp_candidates`` "auto" and "off" in turns on the KITTI-scale
-pairs from the trained checkpoint; results go to ``<keep>/e2e_<profile>/``
-(``--keep DIR``, default ``outputs``, relative to the checkout).
+timed at its own shapes, and with ``--profile lidar`` the KITTI-scale pairs
+from the trained checkpoint: their feature match held to ``check_nn1``
+without the random features' near-tie allowance, and register()'s ICP
+stage with ``icp_candidates`` "auto" and "off" in turns; results go to
+``<keep>/e2e_<profile>/`` (``--keep DIR``, default ``outputs``, relative to
+the checkout). ``--deterministic-stream`` is phase 9's child.
 """
 
 from __future__ import annotations
@@ -221,11 +235,12 @@ def nn1_bound_ms(n0, n1, c: int, tensor_cores: bool = False):
 
 
 def check_nn1(knn, F0, F1, num0, num1, exact: bool, label: str,
-              bitwise: bool = False) -> dict:
+              bitwise: bool = False, dense_ties: bool = True) -> dict:
     """The width's kernel against the plain version on one input; returns
     the comparison's numbers. ``exact``: indices equal on every row (exact
     duplicates); ``bitwise``: indices and d2 equal bit for bit (kernel A on
-    the main path's ICP scans)."""
+    the main path's ICP scans); ``dense_ties`` False: no allowance past
+    NEAR_TIE_SHARE (trained features)."""
     mma = F0.shape[1] > knn.SCAN_MAX_C
     kernel = knn.nn1_mma if mma else knn.nn1_scan
     i_k, d_k = kernel(F0, F1, num0, num1)
@@ -272,7 +287,8 @@ def check_nn1(knn, F0, F1, num0, num1, exact: bool, label: str,
         exact_i = argmin_f64(f0[:num0], f1[:num1])
         r["plain_misses_f64_argmin"] = int((i_p[:num0].long() != exact_i).sum())
         r["kernel_misses_f64_argmin"] = int((i_k[:num0].long() != exact_i).sum())
-        if not mma or r["kernel_misses_f64_argmin"] > r["plain_misses_f64_argmin"]:
+        if (not mma or not dense_ties
+                or r["kernel_misses_f64_argmin"] > r["plain_misses_f64_argmin"]):
             fail(f"nn1 {label}: {diff.numel()} near-tie rows exceed "
                  f"{NEAR_TIE_SHARE} of {num0}; against the exact f64 argmin: {r}")
     print(f"nn1 {label} ({kernel.__name__}): rows {F0.shape[0]}x{F1.shape[0]} "
@@ -491,13 +507,17 @@ def profile_busy(fn, unprofiled_s: float) -> dict | None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         dev_ms, launches = profiling.kernel_totals(tmp)
+        busy_ms = profiling.kernel_busy_ms(tmp)
         top = profiling.summarize_trace(tmp, top=10)
     if dev_ms <= 0:
         print("device busy share: not measured (the profiler saw no device time)")
         return None
+    # Busy: the time in which at least one kernel ran (kernels on several
+    # streams overlap); kernel_ms: the kernels' times summed.
     return {"profiled_wall_ms": wall * 1e3, "device_kernel_ms": dev_ms,
-            "device_busy_share_profiled": dev_ms / (wall * 1e3),
-            "device_busy_share_unprofiled": dev_ms / (unprofiled_s * 1e3),
+            "device_busy_ms": busy_ms,
+            "device_busy_share_profiled": busy_ms / (wall * 1e3),
+            "device_busy_share_unprofiled": busy_ms / (unprofiled_s * 1e3),
             "device_kernel_launches": launches,
             "top_kernels_ms": {k[:70]: v for k, v in top.items()}}
 
@@ -1104,19 +1124,218 @@ def phase_batch(knn) -> dict:
                "nn1_scan_batched": time_nn1_batched(knn, moved, S1, n0, n1,
                                                     "bench ICP scan")}
 
-    # bench.py's stream: the four pairs twice, two sub-batches, in turns
-    # with register_many on the same pairs.
+    # bench.py's stream: the four pairs twice, in turns: the batched program
+    # (two sub-batches), the register_many window (3 pairs on worker
+    # streams) and the register() loop.
     stream = [pairs[i % 4] for i in range(8)]
-    cmp = batch_bench.compare(dgr, [p[0] for p in stream], [p[1] for p in stream])
-    cmp.pop("T_batch")
-    for t in cmp["turns"]:
+    sx, sy = [p[0] for p in stream], [p[1] for p in stream]
+    cmp = batch_bench.compare(dgr, sx, sy)
+    stream_r = hold_stream(cmp["turns"], stream)
+    loop_s = cmp["mean_s_per_pair"]["loop"]
+    busy = {"batch_4": profile_busy(
+                lambda: dgr.register_batch(x0s, x1s, force_vmapped=True),
+                4 * r4["s_per_pair"]),
+            "register_many_8": profile_busy(lambda: dgr.register_many(sx, sy),
+                                            8 * cmp["mean_s_per_pair"]["many"]),
+            "loop_8": profile_busy(lambda: [dgr.register(a, b) for a, b in zip(sx, sy)],
+                                   8 * loop_s)}
+    print(json.dumps({"batch_stream_8": {
+        "turns": [batch_bench.printable(t) for t in cmp["turns"]],
+        "mean_s_per_pair": cmp["mean_s_per_pair"], **stream_r, "profiled": busy}}),
+        flush=True)
+    loop_turns = [t for t in cmp["turns"] if t["kind"] == "loop"]
+    stream_deterministic_child({"s_per_pair": loop_s, "stage_s": {
+        k: float(np.mean([t["register_stage_s"][k] for t in loop_turns])) / 8
+        for k in loop_turns[0]["register_stage_s"]}})
+    return {"launches": r4["launches"], "max_abs_err": err, "timings": timings,
+            "s_per_pair": cmp["mean_s_per_pair"], "launches_many": stream_r["launches_many"]}
+
+
+# register_batch against the register() loop on the 8-pair stream, each
+# pair's pose. Under deterministic algorithms the two agreed to 0.0046 deg
+# and 89 um (PERF.md section 2); in default mode the atomic index_add_
+# moves a pose run to run, and the loop's pair 1 (its ICP ends on the
+# 30-step cap) moved up to 2.2 cm between two register() calls and 4.25 cm
+# against the batch. The bound is the deterministic gap plus a margin of
+# about twice that spread.
+BATCH_LOOP_DEG, BATCH_LOOP_M = 0.005 + 0.5, 0.0001 + 0.08
+
+
+def _want_launches(records) -> dict:
+    """The 1-NN launches that pairs' records imply: one feature match
+    (``nn1_mma``) a pair, and one full scan (``nn1_scan``) an ICP evaluation
+    (its iterations and the init's) of each pair whose full scan ran."""
+    scan = sum(r.iterations["icp"] + 1 for r in records
+               if r.iterations.get("icp_mode") == "full" or r.cand_fallback)
+    return {"nn1_scan": scan, "nn1_mma": len(records), "total": scan + len(records),
+            "nn1_scan_batched": 0, "nn1_mma_batched": 0}
+
+
+def _pose_gaps(Ta, Tb):
+    """Each pair's (rotation angle in deg, translation distance in m) between
+    two poses; the angle from |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2), which
+    resolves angles near 0 where the trace's arccos does not."""
+    out = []
+    for a, b in zip(Ta, Tb):
+        f = np.linalg.norm(a[:3, :3] - b[:3, :3]) / (2 * np.sqrt(2))
+        out.append((float(np.degrees(2 * np.arcsin(min(f, 1.0)))),
+                    float(np.linalg.norm(a[:3, 3] - b[:3, 3]))))
+    return out
+
+
+def hold_stream(turns, stream) -> dict:
+    """The 8-pair stream's turns: each register_many and loop turn's launch
+    counts exactly its records' (no launch lost under the threads), every
+    register_many turn at the bench's pose limits with 0 overflow pairs and
+    each pair's gate branch and ICP mode the loop's; each batch turn's gate
+    bits, cand_ok and reruns the loop's, and each pose within
+    BATCH_LOOP_DEG / BATCH_LOOP_M of the loop's."""
+    loops = [t for t in turns if t["kind"] == "loop"]
+    ref = loops[0]["records"]
+    spread = _pose_gaps(loops[0]["T"], loops[-1]["T"])
+    out = {"launches_many": None, "batch_vs_loop_deg": [], "batch_vs_loop_m": [],
+           "loop_vs_loop_deg": max(g[0] for g in spread),
+           "loop_vs_loop_m": max(g[1] for g in spread)}
+    for t in turns:
+        label = f"stream {t['kind']} turn"
         if t["kind"] == "batch":
             _check_batch_launches(t, "register_batch (bench stream, 8 pairs)")
-    busy = profile_busy(lambda: dgr.register_batch(x0s, x1s, force_vmapped=True),
-                        4 * r4["s_per_pair"])
-    print(json.dumps({"batch_stream_8": {**cmp, "profiled_batch_4": busy}}), flush=True)
-    return {"launches": r4["launches"], "max_abs_err": err, "timings": timings,
-            "s_per_pair": cmp["mean_s_per_pair"]}
+            lb = t["last_batch"]
+            gate = [r.branch == "refine" for r in ref]
+            cand = [not r.cand_fallback for r in ref]
+            if (lb["gate"] != gate or lb["cand_ok"] != cand
+                    or lb["rerun"] != [not (g and c) for g, c in zip(gate, cand)]):
+                fail(f"{label}: gate {lb['gate']}, cand_ok {lb['cand_ok']}, rerun "
+                     f"{lb['rerun']} against the loop's gate {gate}, cand_ok {cand}")
+            gaps = _pose_gaps(t["T"], loops[0]["T"])
+            out["batch_vs_loop_deg"].append(max(g[0] for g in gaps))
+            out["batch_vs_loop_m"].append(max(g[1] for g in gaps))
+            if (out["batch_vs_loop_deg"][-1] > BATCH_LOOP_DEG
+                    or out["batch_vs_loop_m"][-1] > BATCH_LOOP_M):
+                fail(f"{label}: a pose {out['batch_vs_loop_deg'][-1]:.4f} deg / "
+                     f"{out['batch_vs_loop_m'][-1] * 100:.3f} cm off the loop's "
+                     f"(bound {BATCH_LOOP_DEG} deg / {BATCH_LOOP_M * 100} cm)")
+            continue
+        recs = t["records"]
+        want = _want_launches(recs)
+        if t["launches"] != {k: want[k] for k in t["launches"]}:
+            fail(f"{label}: launches {t['launches']}, the records want {want}")
+        if t["kind"] != "many":
+            continue
+        out["launches_many"] = out["launches_many"] or dict(t["launches"])
+        errs = [pose_errors(T, p[2]) for T, p in zip(t["T"], stream)]
+        rre = float(np.mean([e[0] for e in errs]))
+        rte = float(np.mean([e[1] for e in errs]))
+        if rre > RRE_DEG or rte > RTE_M or any(r.overflow for r in recs):
+            fail(f"{label}: mean rre {rre:.3f} deg / rte {rte * 100:.2f} cm, "
+                 f"{sum(r.overflow for r in recs)} overflow pairs (limits 1 deg / "
+                 "10 cm / 0)")
+        if ([(r.branch, r.iterations.get("icp_mode")) for r in recs]
+                != [(r.branch, r.iterations.get("icp_mode")) for r in ref]):
+            fail(f"{label}: branches and ICP modes differ from the loop's")
+        out.setdefault("many_rre_deg", []).append(rre)
+        out.setdefault("many_rte_cm", []).append(rte * 100)
+    return out
+
+
+def stream_deterministic_child(default_loop: dict) -> dict:
+    """``python3 chip_smoke.py --deterministic-stream`` in a child process
+    (CUBLAS_WORKSPACE_CONFIG=:4096:8, deterministic algorithms), which holds
+    register_many bit for bit against the loop; returns its JSON line with
+    its loop's s/pair and stage split beside ``default_loop``'s (this
+    process's loop turns: ``s_per_pair``, ``stage_s`` a pair)."""
+    import os
+
+    t0 = time.time()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--deterministic-stream"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], flush=True)
+        fail(f"the deterministic stream check exited {proc.returncode}")
+    line = next(x for x in proc.stdout.splitlines()
+                if x.startswith('{"deterministic_stream"'))
+    r = json.loads(line)["deterministic_stream"]
+    r["child_s"] = time.time() - t0
+    r["default_loop_s_per_pair"] = default_loop["s_per_pair"]
+    r["deterministic_cost"] = r["loop_s_per_pair"] / default_loop["s_per_pair"]
+    r["default_loop_stage_s"] = default_loop["stage_s"]
+    print(json.dumps({"deterministic_stream_cost": {
+        k: r[k] for k in ("loop_s_per_pair", "default_loop_s_per_pair",
+                          "deterministic_cost", "loop_stage_s", "default_loop_stage_s",
+                          "child_s")}}), flush=True)
+    return r
+
+
+def deterministic_stream() -> int:
+    """The child of ``stream_deterministic_child``: bench.py's 8-pair stream
+    through the register() loop twice, register_many (window 3) and
+    register_batch once, under ``torch.use_deterministic_algorithms``. With
+    no op reported as nondeterministic, the loops and register_many must
+    agree bit for bit (T, each record's branch, iterations and ICP mode,
+    launch counts); else, with the ops named, each pair's branch and ICP
+    mode and a finite pose within the loops' own gap plus 1 mm and 0.05 deg.
+    Prints the batch's gap against the loop."""
+    import warnings
+
+    from deepglobalregistration_tpu_torch.config import default_config
+    from deepglobalregistration_tpu_torch.core.pipeline import DeepGlobalRegistration
+    from deepglobalregistration_tpu_torch.ops import knn
+    from deepglobalregistration_tpu_torch.tools import batch_bench
+    from deepglobalregistration_tpu_torch.utils import cuda_build, device
+    from deepglobalregistration_tpu_torch.utils.synthetic import synthetic_pair
+
+    device.set_precision()
+    cuda_build.build()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dgr = DeepGlobalRegistration(default_config(bf16=True, **BENCH), device="cuda")
+    pairs = [synthetic_pair(n=30000, seed=s) for s in range(4)]
+    stream = [pairs[i % 4] for i in range(8)]
+    sx, sy = [p[0] for p in stream], [p[1] for p in stream]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        turns = {}  # loop_1 is also the warm-up: loop_2 gives the time
+        for name, kind in (("loop_1", "loop"), ("loop_2", "loop"), ("many", "many"),
+                           ("batch", "batch")):
+            dgr._seeds.manual_seed(0)  # every turn draws the same RANSAC seeds
+            turns[name] = batch_bench.run_turn(dgr, kind, sx, sy)
+    ops = sorted({str(w.message) for w in caught
+                  if "deterministic" in str(w.message)})
+    l1, l2, many = turns["loop_1"], turns["loop_2"], turns["many"]
+    key = lambda recs: [(r.branch, r.iterations) for r in recs]
+    r = {"nondeterministic_ops": ops, "loop_s_per_pair": l2["s_per_pair"],
+         "many_s_per_pair": many["s_per_pair"], "batch_s_per_pair": turns["batch"]["s_per_pair"],
+         "loop_stage_s": {k: v / len(sx) for k, v in l2["register_stage_s"].items()},
+         "records": [{"branch": b, **i} for b, i in key(l1["records"])],
+         "launches": {k: turns[k]["launches"] for k in turns}}
+    loop_gap = _pose_gaps(l1["T"], l2["T"])
+    many_gap = _pose_gaps(many["T"], l1["T"])
+    batch_gap = _pose_gaps(turns["batch"]["T"], l1["T"])
+    r.update(loop_vs_loop_max=[max(g[0] for g in loop_gap), max(g[1] for g in loop_gap)],
+             many_vs_loop_max=[max(g[0] for g in many_gap), max(g[1] for g in many_gap)],
+             batch_vs_loop_deg=[g[0] for g in batch_gap],
+             batch_vs_loop_m=[g[1] for g in batch_gap])
+    print(json.dumps({"deterministic_stream": r}), flush=True)
+    if not ops:
+        same = (np.array_equal(l1["T"], l2["T"]) and np.array_equal(many["T"], l1["T"])
+                and key(l1["records"]) == key(l2["records"]) == key(many["records"])
+                and l1["launches"] == l2["launches"] == many["launches"])
+        if not same:
+            fail("deterministic mode: register_many and the two loops differ")
+        return 0
+    print(f"deterministic mode: no deterministic implementation on CUDA for {ops}",
+          flush=True)
+    mode = lambda recs: [(x.branch, x.iterations.get("icp_mode")) for x in recs]
+    if not (mode(many["records"]) == mode(l1["records"]) == mode(l2["records"])
+            and np.isfinite(many["T"]).all()):
+        fail("deterministic mode: branches, ICP modes or finite poses differ")
+    for p, (g, lg) in enumerate(zip(many_gap, loop_gap)):
+        if g[0] > lg[0] + 0.05 or g[1] > lg[1] + 1e-3:
+            fail(f"deterministic mode: pair {p} of register_many is {g} off the loop, "
+                 f"the loops {lg} apart (allowance 0.05 deg, 1 mm)")
+    return 0
 
 
 def phase_batch_kitti(knn) -> dict:
@@ -2593,6 +2812,16 @@ def chain_full(argv) -> int:
             T_gt[:3, :3], T_gt[:3, 3] = R, t
             pairs.append((xyz0, xyz1, T_gt))
         dgr.register(pairs[0][0], pairs[0][1])  # warm-up
+        # ROADMAP section 3 item 2: nn1_mma on trained features at KITTI
+        # scale, without the allowance random features need for dense ties.
+        r["trained_match"] = []
+        for k, (xyz0, xyz1, _) in enumerate(pairs):
+            with torch.no_grad():
+                _, _, _, _, a0, a1, _ = dgr.features(dgr._as_tensor(xyz0),
+                                                     dgr._as_tensor(xyz1))
+            r["trained_match"].append(check_nn1(
+                knn, a0, a1, a0.shape[0], a1.shape[0], False,
+                f"trained lidar KITTI-scale match, pair {k}", dense_ties=False))
         dgr.stage_timers["icp"].reset()
         modes, errs, falls = [], [], []
         for xyz0, xyz1, T_gt in pairs:
@@ -2634,6 +2863,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == ["--chain"]:
         return chain_full(sys.argv[2:])
+    if sys.argv[1:2] == ["--deterministic-stream"]:
+        return deterministic_stream()
     from deepglobalregistration_tpu_torch.ops import knn
     from deepglobalregistration_tpu_torch.utils import cuda_build, device
 
@@ -2684,7 +2915,8 @@ def main() -> int:
             ("default_config", models["default_launches"]),
             ("pth", models["pth_launches"]), ("eval_demo", ev["demo"]),
             ("eval_3dmatch", ev["3dmatch"]), ("eval_kitti", ev["kitti"]),
-            ("tail_chain", tail["chain"]["launches"]))})
+            ("tail_chain", tail["chain"]["launches"]),
+            ("register_many", batch["launches_many"]))})
         if name == "nn1_scan":  # the KITTI loader's ground-truth ICP
             g = ev["kitti_gt_timing"]
             entry.update({f"{k}_kitti_gt": g[k] for k in (

@@ -30,12 +30,22 @@ the B pairs' correspondences, the refinement and ICP over all pairs with
 per-pair freezing; pairs whose gate or candidate lists fail rerun through
 ``register()``. With ``mesh=`` it fans the pairs out over the ranks of
 ``parallel/data_parallel.py``.
+
+``register_many`` pipelines a stream of pairs: each of a bounded window of
+pairs runs ``register()``'s work on a worker thread and, on the card, on
+its own CUDA stream, so one pair's host work (Python dispatch, the waits
+of the gate, the refinement and ICP stop rules) overlaps another pair's
+device work. Each call's RANSAC draws come from a seed taken in call order
+from one seeded host generator, so the window returns what a loop of
+``register()`` returns.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -83,6 +93,17 @@ def build_net(spec, tree, cfg, fold_bn: bool, dtype: torch.dtype,
     return net.to(device).eval().requires_grad_(False)
 
 
+class PairRecord(NamedTuple):
+    """What one ``register()`` call records about its pair."""
+
+    branch: str  # the weighted-sum gate's branch: "refine" or "ransac"
+    iterations: Dict[str, object]  # "refine", and with ICP "icp" and "icp_mode"
+    cap: int  # the pair's voxel bucket
+    overflow: bool  # the JAX package's fixed capacities would drop entries
+    cand_fallback: bool  # the candidate ICP's lists went stale: the scan reran
+    stage_s: Dict[str, float]  # seconds of each of STAGES
+
+
 def _get(cfg, key, default=None):
     return cfg.get(key, default) if isinstance(cfg, dict) else getattr(cfg, key, default)
 
@@ -112,6 +133,8 @@ class DeepGlobalRegistration:
         if self.icp_candidates not in ("auto", "on", "off"):
             raise ValueError("icp_candidates must be auto|on|off, got "
                              f"{self.icp_candidates!r}")
+        # Summed over calls on the calling thread (register_many adds each
+        # pair's record as it collects the pair).
         self.feat_timer = Timer()
         self.stage_timers: Dict[str, Timer] = {s: Timer() for s in STAGES}
         # The batched program's stages, one tic/toc a sub-batch (its pairs'
@@ -121,6 +144,8 @@ class DeepGlobalRegistration:
         self.overflow_count = 0
         self.cand_fallbacks = 0  # pairs whose candidate ICP fell back to the scan
         self.last_iterations: Dict[str, object] = {}
+        self.last_record: PairRecord | None = None
+        self.last_many: list = []  # register_many's PairRecords, in pair order
         self.buckets = tuple(int(b) for b in str(config.point_buckets).split(",")
                              if b) or _DEFAULT_BUCKETS
         self.level_shrink = int(config.level_shrink)
@@ -129,7 +154,9 @@ class DeepGlobalRegistration:
         self.dense_extent = tuple(int(x) for x in de.split(",")) if de else None
         self.ransac_hypotheses = int(config.ransac_hypotheses)
         self.compute_dtype = torch.bfloat16 if config.bf16 else torch.float32
-        self._rng = device_utils.generator(0, self.device)
+        # One RANSAC seed a call, drawn in call order (_next_seed).
+        self._seeds = device_utils.generator(0)
+        self._streams: list = []  # register_many's worker streams, reused
 
         inlier_tree = None
         if config.weights:
@@ -186,11 +213,18 @@ class DeepGlobalRegistration:
         # A copy: the caller's array may be read-only.
         return torch.as_tensor(np.array(pcd, np.float32), device=self.device)
 
-    def _stage(self, name: str, start: bool, timers=None):
+    def _stage(self, name: str, start: bool, timers: Dict[str, Timer]):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = (timers or self.stage_timers)[name]
+            # This thread's stream only: under register_many each pair runs
+            # on its own stream, and a device-wide wait would serialise them.
+            torch.cuda.current_stream(self.device).synchronize()
+        t = timers[name]
         t.tic() if start else t.toc()
+
+    def _next_seed(self) -> int:
+        """The next call's RANSAC seed (the JAX package splits its key once a
+        call): drawn on the calling thread, in call order."""
+        return int(torch.randint(2 ** 62, (), generator=self._seeds))
 
     def _fcgf_forward(self, grid: torch.Tensor, batch_size: int, cap: int):
         """FCGF on a batched voxel grid [N, 4]; returns (features [N, C] f32,
@@ -226,18 +260,24 @@ class DeepGlobalRegistration:
         Returns (selected points 0, 1, voxel grids 0, 1, features 0, 1, the
         JAX package's overflow count for the 3D plan). Sets ``_cap``, the
         voxel bucket of the pair."""
-        self._stage("voxelize", True)
+        *out, self._cap = self._features(xyz0, xyz1, self.stage_timers)
+        self.feat_timer.add(self.stage_timers["fcgf"].diff)
+        return tuple(out)
+
+    def _features(self, xyz0: torch.Tensor, xyz1: torch.Tensor,
+                  timers: Dict[str, Timer]):
+        """``features`` with the pair's voxel bucket appended, timed into
+        ``timers``."""
+        self._stage("voxelize", True, timers)
         sel0, g0 = sparse_grid.voxelize(xyz0, self.voxel_size, 0)
         sel1, g1 = sparse_grid.voxelize(xyz1, self.voxel_size, 1)
-        self._stage("voxelize", False)
+        self._stage("voxelize", False, timers)
         n0 = g0.shape[0]
-        self._cap = _bucket_for(max(n0, g1.shape[0]), self.buckets)
-        self._stage("fcgf", True)
-        self.feat_timer.tic()
-        feats, overflow = self._fcgf_forward(torch.cat([g0, g1]), 2, self._cap)
-        self._stage("fcgf", False)
-        self.feat_timer.toc()
-        return sel0, sel1, g0, g1, feats[:n0], feats[n0:], overflow
+        cap = _bucket_for(max(n0, g1.shape[0]), self.buckets)
+        self._stage("fcgf", True, timers)
+        feats, overflow = self._fcgf_forward(torch.cat([g0, g1]), 2, cap)
+        self._stage("fcgf", False, timers)
+        return sel0, sel1, g0, g1, feats[:n0], feats[n0:], overflow, cap
 
     def _inlier_inputs(self, sel0, sel1, g0, g1, f0, f1, idx1, column: int = 0):
         """The 6D grid rows [N0, 7] (batch column ``column``) and the net's
@@ -262,11 +302,12 @@ class DeepGlobalRegistration:
             w = torch.where(w < self.clip_weight_thresh, torch.zeros_like(w), w)
         return w
 
-    def inlier_weights(self, sel0, sel1, g0, g1, f0, f1, idx1):
-        """6D inlier net on the correspondences (row i <-> idx1[i]); returns
-        (clipped sigmoid weights [N0], overflow count of the 6D plan)."""
+    def inlier_weights(self, sel0, sel1, g0, g1, f0, f1, idx1, cap: int):
+        """6D inlier net on the correspondences (row i <-> idx1[i]) of a pair
+        at voxel bucket ``cap``; returns (clipped sigmoid weights [N0],
+        overflow count of the 6D plan)."""
         c6, ifeat = self._inlier_inputs(sel0, sel1, g0, g1, f0, f1, idx1)
-        logits, overflow = self._inlier_logits(c6, ifeat, self._cap)
+        logits, overflow = self._inlier_logits(c6, ifeat, cap)
         return self._weights(logits), overflow
 
     def use_cand_for(self, cap: int) -> bool:
@@ -275,58 +316,75 @@ class DeepGlobalRegistration:
             return cap >= _ICP_CAND_MIN_CAP
         return self.icp_candidates == "on"
 
-    def icp_polish(self, sel0: torch.Tensor, sel1: torch.Tensor,
-                   T: torch.Tensor) -> torch.Tensor:
+    def icp_polish(self, sel0: torch.Tensor, sel1: torch.Tensor, T: torch.Tensor,
+                   cap: int, timers: Dict[str, Timer]):
         """ICP from T at ``max_correspondence_distance = 2 * voxel``: the full
-        scan, or at the pair's bucket (``_cap``) candidate lists with the
-        checked full-scan fallback. Records ``last_iterations["icp"]`` and
-        ``["icp_mode"]``; a fallback adds one to ``cand_fallbacks``."""
-        self._stage("icp", True)
+        scan, or at voxel bucket ``cap`` candidate lists with the checked
+        full-scan fallback. Returns (T, iterations, mode, whether the
+        candidate answer was kept)."""
+        self._stage("icp", True, timers)
         mcd = 2 * self.voxel_size
-        if self.use_cand_for(self._cap):
+        if self.use_cand_for(cap):
             res = icp_ops.registration_icp_checked(sel0, sel1, mcd, init=T)
             mode = "candidates"
             if not res.cand_ok:
-                self.cand_fallbacks += 1
                 log.warning("ICP candidate lists went stale (pose drift > "
                             "quarter cell); the full-scan ICP fallback ran")
         else:
             res = icp_ops.registration_icp(sel0, sel1, mcd, init=T)
             mode = "full"
-        self.last_iterations.update(icp=res.iterations, icp_mode=mode)
-        self._stage("icp", False)
-        return res.T
+        self._stage("icp", False, timers)
+        return res.T, res.iterations, mode, res.cand_ok
 
-    @torch.no_grad()
     def register(self, xyz0, xyz1, inlier_thr: float = 0.0) -> np.ndarray:
         """Register xyz0 onto xyz1; returns the 4x4 float64 transform.
 
         ``inlier_thr`` is the JAX package's (and the reference's) argument;
-        it is unused there too."""
+        it is unused there too. Sets ``last_record`` (the call's
+        ``PairRecord``), ``last_branch``, ``last_iterations`` and ``_cap``
+        from it and adds its overflow, fallback and stage times to the
+        instance's counters."""
+        T, rec = self._register_one(xyz0, xyz1, self._next_seed())
+        self._record(rec)
+        return T
+
+    def _record(self, rec: PairRecord) -> None:
+        self.last_record, self.last_branch, self._cap = rec, rec.branch, rec.cap
+        self.last_iterations = dict(rec.iterations)
+        self.overflow_count += rec.overflow
+        self.cand_fallbacks += rec.cand_fallback
+        for s, sec in rec.stage_s.items():
+            self.stage_timers[s].add(sec)
+        self.feat_timer.add(rec.stage_s["fcgf"])
+
+    @torch.no_grad()
+    def _register_one(self, xyz0, xyz1, seed: int):
+        """One pair on the current thread, device and stream, touching no
+        instance state; returns (T [4, 4] float64 numpy, its PairRecord).
+        ``seed`` seeds the generator of the RANSAC branch's draws."""
+        timers = {s: Timer() for s in STAGES}
         xyz0, xyz1 = self._as_tensor(xyz0), self._as_tensor(xyz1)
-        sel0, sel1, g0, g1, f0, f1, ov3 = self.features(xyz0, xyz1)
-        self._stage("match", True)
+        sel0, sel1, g0, g1, f0, f1, ov3, cap = self._features(xyz0, xyz1, timers)
+        self._stage("match", True, timers)
         if self.knn_search_method == "cpu":
             idx = knn.find_knn_cpu(f0.cpu().numpy(), f1.cpu().numpy())
             idx1 = torch.as_tensor(np.asarray(idx).reshape(-1), dtype=torch.long,
                                    device=self.device)
         else:
             idx1 = knn.find_nn(f0, f1)[0].long()
-        self._stage("match", False)
-        self._stage("inlier", True)
-        w, ov6 = self.inlier_weights(sel0, sel1, g0, g1, f0, f1, idx1)
+        self._stage("match", False, timers)
+        self._stage("inlier", True, timers)
+        w, ov6 = self.inlier_weights(sel0, sel1, g0, g1, f0, f1, idx1, cap)
         wsum = float(torch.sum(w))
-        self._stage("inlier", False)
+        self._stage("inlier", False, timers)
         if ov3 or ov6:
-            self.overflow_count += 1
             log.warning("the JAX package's fixed kernel-map capacities would "
                         "drop entries on this pair (3D: %d, 6D: %d)", ov3, ov6)
         n0 = g0.shape[0]
         thresh = max(200.0, 0.05 * n0)
         log.info("Weighted sum %.2f %s threshold %.1f", wsum,
                  ">=" if wsum >= thresh else "<", thresh)
-        self.last_branch = "refine" if wsum >= thresh else "ransac"
-        self._stage("solve", True)
+        self._stage("solve", True, timers)
         voxel2 = 2 * self.voxel_size
         if wsum >= thresh:
             res = registration.global_registration(
@@ -335,21 +393,108 @@ class DeepGlobalRegistration:
         elif self.safeguard_method == "correspondence":
             res = ransac.ransac_correspondence(
                 sel0, sel1[idx1], distance_threshold=voxel2,
-                num_hypotheses=self.ransac_hypotheses, generator=self._rng)
+                num_hypotheses=self.ransac_hypotheses,
+                generator=device_utils.generator(seed, self.device))
         else:
             res = ransac.ransac_feature_matching(
                 sel0, sel1, f0, f1, distance_threshold=voxel2,
-                num_hypotheses=self.ransac_hypotheses, generator=self._rng)
+                num_hypotheses=self.ransac_hypotheses,
+                generator=device_utils.generator(seed, self.device))
         T = se3.rt_to_matrix(res.R, res.t)
-        self.last_iterations = {"refine": getattr(res, "iterations", 0)}
-        self._stage("solve", False)
+        iterations = {"refine": getattr(res, "iterations", 0)}
+        self._stage("solve", False, timers)
+        cand_ok = True
         if self.use_icp:
-            T = self.icp_polish(sel0, sel1, T)
-        return T.double().cpu().numpy()
+            T, icp_iters, mode, cand_ok = self.icp_polish(sel0, sel1, T, cap, timers)
+            iterations.update(icp=icp_iters, icp_mode=mode)
+        rec = PairRecord(branch="refine" if wsum >= thresh else "ransac",
+                         iterations=iterations, cap=cap, overflow=bool(ov3 or ov6),
+                         cand_fallback=not cand_ok,
+                         stage_s={s: t.total_time for s, t in timers.items()})
+        return T.double().cpu().numpy(), rec
 
-    def register_many(self, xyz0_list, xyz1_list) -> np.ndarray:
-        """Sequential ``register`` over pairs; returns [B, 4, 4]."""
-        return np.stack([self.register(a, b) for a, b in zip(xyz0_list, xyz1_list)])
+    # Pairs in flight in register_many: the JAX package's value, kept as its
+    # contract. On the H100 the window runs slower than the loop, since each
+    # pair's tiny ops contend for the interpreter lock (PERF.md section 5).
+    _STREAM_WINDOW = 3
+
+    def register_many(self, xyz0_list, xyz1_list, window: int | None = None
+                      ) -> np.ndarray:
+        """Register a stream of pairs, pipelined; returns [B, 4, 4] float64.
+
+        The same result as ``register()`` on each pair in turn, bit for bit
+        where the device's arithmetic is deterministic: each pair takes its
+        RANSAC seed in pair order and runs ``register()``'s work on one of
+        at most ``window`` (default ``_STREAM_WINDOW``; another value is for
+        probes) worker threads, on the card inside that pair's own CUDA
+        stream, so no tensor crosses streams and each wait in a pair (the
+        gate, the refinement's and ICP's stop rules) waits for that pair
+        alone. Pairs are collected in order; each record's counters are
+        added on the calling thread, and ``last_many`` holds the records in
+        pair order. An exception raised by a pair reaches the caller once
+        the pairs in flight are collected; no later pair is dispatched. The
+        JAX package's speculative bucket and its redo avoid a host round trip
+        that ``register()`` here makes anyway (the voxel counts), so the
+        port has none. The host KD-tree match (``knn_search_method="cpu"``)
+        and the feature-matching safeguard run pair by pair on the calling
+        thread, as in the JAX package."""
+        pairs = list(zip(xyz0_list, xyz1_list))
+        window = self._STREAM_WINDOW if window is None else int(window)
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        out, records = [None] * len(pairs), [None] * len(pairs)
+        if self.knn_search_method == "cpu" or self.safeguard_method != "correspondence":
+            for k, (a, b) in enumerate(pairs):
+                out[k], records[k] = self._register_one(a, b, self._next_seed())
+                self._record(records[k])
+            self.last_many = records
+            return np.stack(out)
+        if self.device.type == "cuda":
+            dev = self.device
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            while len(self._streams) < window:
+                self._streams.append(torch.cuda.Stream(dev))
+            streams = self._streams[:window]
+            caller = torch.cuda.current_stream(dev)
+            for s in streams:  # work the caller queued comes first
+                s.wait_stream(caller)
+
+            def run(a, b, seed, slot):
+                with torch.cuda.device(dev), torch.cuda.stream(streams[slot]):
+                    return self._register_one(a, b, seed)
+        else:
+            def run(a, b, seed, slot):
+                return self._register_one(a, b, seed)
+
+        inflight = collections.deque()
+        error = None
+
+        def collect():
+            nonlocal error
+            k, future = inflight.popleft()
+            try:
+                out[k], records[k] = future.result()
+            except Exception as e:  # raised once the window has drained
+                error = error or e
+                return
+            self._record(records[k])
+
+        with ThreadPoolExecutor(max_workers=window,
+                                thread_name_prefix="register_many") as pool:
+            for k, (a, b) in enumerate(pairs):
+                if len(inflight) == window:
+                    collect()
+                if error is not None:
+                    break
+                inflight.append((k, pool.submit(run, a, b, self._next_seed(),
+                                                k % window)))
+            while inflight:
+                collect()
+        if error is not None:
+            raise error
+        self.last_many = records
+        return np.stack(out)
 
     # Pairs in one batched program. The JAX package set 4 for TPU v5e memory
     # (its 6D plans at the 16384 bucket); kept for parity until the card's
@@ -578,15 +723,16 @@ class DeepGlobalRegistration:
         xyz0, xyz1 = self._as_tensor(pcd0), self._as_tensor(pcd1)
         h = int(min(max(num_iterations, 1024), 65536))
         thresh = float(distance_threshold)
+        rng = device_utils.generator(self._next_seed(), self.device)
         if self.safeguard_method == "correspondence":
             i0 = torch.as_tensor(np.asarray(idx0), dtype=torch.long, device=self.device)
             i1 = torch.as_tensor(np.asarray(idx1), dtype=torch.long, device=self.device)
             res = ransac.ransac_correspondence(xyz0[i0], xyz1[i1], thresh,
-                                               num_hypotheses=h, generator=self._rng)
+                                               num_hypotheses=h, generator=rng)
         else:
             res = ransac.ransac_feature_matching(
                 xyz0, xyz1, self._as_tensor(feats0), self._as_tensor(feats1),
-                thresh, num_hypotheses=h, generator=self._rng)
+                thresh, num_hypotheses=h, generator=rng)
         T = np.eye(4)
         T[:3, :3] = res.R.cpu().numpy()
         T[:3, 3] = res.t.cpu().numpy()

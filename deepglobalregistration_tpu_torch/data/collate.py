@@ -46,14 +46,12 @@ def make_pair_batch(list_data, buckets: Sequence[int] = _DEFAULT_BUCKETS) -> Pai
     xyz0, xyz1, c0, c1, f0, f1, matches, trans, _ = zip(*list_data)
     b = len(list_data)
     n = bucket_for(max(max(len(a) for a in xyz0), max(len(a) for a in xyz1)), buckets)
-    # GT-match count may exceed the ladder (radius search on dense pairs emits
-    # up to ~1M pairs): clamp to the top bucket — the per-pair fill below
-    # already truncates via k = min(len(m), p) — instead of crashing training.
+    # Ground-truth matches are kept whole: a radius search on a dense pair
+    # emits up to ~1M, past the largest bucket. (The JAX package's static
+    # shapes cut them at the largest bucket and label the rest negative; the
+    # reference keeps every match, and so does the port.)
     max_matches = max(max(len(m) for m in matches), 1)
-    p = bucket_for(min(max_matches, buckets[-1]), buckets)
-    if max_matches > buckets[-1]:
-        logging.getLogger(__name__).warning(
-            "truncating %d GT matches to bucket %d", max_matches, buckets[-1])
+    p = bucket_for(max_matches, buckets) if max_matches <= buckets[-1] else max_matches
 
     def pad_pts(arrs):
         out = np.zeros((b, n, 3), np.float32)
@@ -70,10 +68,9 @@ def make_pair_batch(list_data, buckets: Sequence[int] = _DEFAULT_BUCKETS) -> Pai
     pos = np.zeros((b, p, 2), np.int32)
     pos_num = np.zeros(b, np.int32)
     for i, m in enumerate(matches):
-        k = min(len(m), p)
-        if k:
-            pos[i, :k] = m[:k]
-        pos_num[i] = k
+        if len(m):
+            pos[i, :len(m)] = m
+        pos_num[i] = len(m)
 
     return PairBatch(
         xyz0=pad_pts(xyz0), xyz1=pad_pts(xyz1),

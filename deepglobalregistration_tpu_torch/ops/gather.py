@@ -25,6 +25,8 @@ import ctypes
 
 import torch
 
+from ..utils import cuda_build
+
 LANES = 128  # words in a row of the 2D table
 
 
@@ -53,14 +55,12 @@ def _check(table: torch.Tensor, idx: torch.Tensor, ndim: int) -> None:
 
 
 def _lib():
-    from ..utils import cuda_build
-
     lib = cuda_build.load("gather")
     for fn in (lib.dgr_take, lib.dgr_take2d):
-        if fn.argtypes is None:
+        if fn.argtypes is None:  # argtypes last: set means all set
+            fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
     return lib
 
 
@@ -81,7 +81,7 @@ def take_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the flat gather kernel on the current stream."""
     _check(table, idx, 1)
     out = _launch("dgr_take", table, idx)
-    take_cuda.launches += 1
+    cuda_build.count_launch(take_cuda)
     return out
 
 
@@ -89,7 +89,7 @@ def take2d_cuda(table2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the row-then-lane gather kernel on the current stream."""
     _check(table2d, idx, 2)
     out = _launch("dgr_take2d", table2d, idx)
-    take2d_cuda.launches += 1
+    cuda_build.count_launch(take2d_cuda)
     return out
 
 

@@ -6,7 +6,9 @@ correspondence distance, solves the update by weighted Procrustes on the
 moved points and composes ``rt_to_matrix(R, t) @ T``. The correspondences
 found when evaluating the new pose feed the next update, so there is one
 neighbour search per iteration. Stops when both |d fitness| and |d rmse| fall
-below 1e-6, or after 30 iterations.
+below 1e-6, or after 30 iterations. ``f32_rmse_floor`` (default 0, the
+JAX package's knob) widens the rmse rule to ``max(relative_rmse, rmse *
+f32_rmse_floor)``; ``tools/icp_deviation.py`` sweeps it.
 
 Two neighbour searches:
 
@@ -130,6 +132,7 @@ def registration_icp(source: torch.Tensor, target: torch.Tensor,
                      init: torch.Tensor | None = None, max_iteration: int = 30,
                      relative_fitness: float = 1e-6,
                      relative_rmse: float = 1e-6,
+                     f32_rmse_floor: float = 0.0,
                      use_candidates: bool = False,
                      num0: Sequence[int] | None = None,
                      num1: Sequence[int] | None = None) -> ICPResult:
@@ -210,8 +213,9 @@ def registration_icp(source: torch.Tensor, target: torch.Tensor,
         R, t = procrustes.weighted_procrustes(moved, nn_xyz, inl.float())
         T_new = torch.matmul(se3.rt_to_matrix(R, t), T)
         new = evaluate(T_new)
+        rmse_eps = torch.clamp(new[4] * f32_rmse_floor, min=relative_rmse)
         done_new = ((torch.abs(new[3] - fit) < relative_fitness)
-                    & (torch.abs(new[4] - rmse) < relative_rmse))
+                    & (torch.abs(new[4] - rmse) < rmse_eps))
         if use_candidates:
             # Lists built at the init: past the quarter-cell bound their
             # answers are no longer trusted, so stop at once (the checked
@@ -237,17 +241,17 @@ def registration_icp(source: torch.Tensor, target: torch.Tensor,
 def registration_icp_checked(source: torch.Tensor, target: torch.Tensor,
                              max_correspondence_distance: float,
                              init: torch.Tensor | None = None,
-                             max_iteration: int = 30) -> ICPResult:
+                             max_iteration: int = 30,
+                             f32_rmse_floor: float = 0.0) -> ICPResult:
     """Candidate-list ICP; when its lists do not hold (``cand_ok`` False:
     the pose drifted past the quarter-cell bound, or a cell overflowed), the
     full scan reruns from the same init on the same device. The result's
     ``cand_ok`` says whether the candidate answer was kept (False: the full
     scan's answer is returned)."""
+    kw = dict(init=init, max_iteration=max_iteration, f32_rmse_floor=f32_rmse_floor)
     res = registration_icp(source, target, max_correspondence_distance,
-                           init=init, max_iteration=max_iteration,
-                           use_candidates=True)
+                           use_candidates=True, **kw)
     if res.cand_ok:
         return res
-    full = registration_icp(source, target, max_correspondence_distance,
-                            init=init, max_iteration=max_iteration)
+    full = registration_icp(source, target, max_correspondence_distance, **kw)
     return full._replace(cand_ok=False)

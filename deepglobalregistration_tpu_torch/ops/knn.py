@@ -31,6 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import cuda_build
+
 _TILE = 4096
 _MAX_C = 64
 SCAN_MAX_C = 8  # widths up to this run kernel A (nn1_scan), wider ones kernel B
@@ -106,17 +108,16 @@ def _check(F0: torch.Tensor, F1: torch.Tensor, name: str, lo: int, hi: int,
 
 
 def _lib(name: str):
-    from ..utils import cuda_build
-
     lib = cuda_build.load(name)
     launch = getattr(lib, f"dgr_{name}")
     workspace = getattr(lib, f"dgr_{name}_workspace")
     if launch.argtypes is None:
-        launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p] * 5)
+        # launch.argtypes last: a thread that finds it set finds the rest set.
         launch.restype = ctypes.c_int
         workspace.argtypes = [ctypes.c_int] * 4
         workspace.restype = ctypes.c_longlong
+        launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] * 5)
     return launch, workspace
 
 
@@ -184,7 +185,7 @@ def nn1_scan(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int
     """Kernel A (``csrc/nn1_scan.cu``, C <= 8): the register-tiled CUDA-core
     scan, equal to ``find_nn_plain`` bit for bit (d2 and index)."""
     idx, d, launched = _run("nn1_scan", 0, SCAN_MAX_C, F0, F1, num0, num1)
-    nn1_scan.launches += launched
+    cuda_build.count_launch(nn1_scan, launched)
     return idx, d
 
 
@@ -194,7 +195,7 @@ def nn1_mma(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int
     tensor cores in 3xTF32. d2 lies within ``MMA_D2_RTOL`` (|a|^2 + |b|^2)
     of its exact value, so it may pick the other candidate of a near-tie."""
     idx, d, launched = _run("nn1_mma", SCAN_MAX_C, _MAX_C, F0, F1, num0, num1)
-    nn1_mma.launches += launched
+    cuda_build.count_launch(nn1_mma, launched)
     return idx, d
 
 
@@ -204,7 +205,7 @@ def nn1_scan_batched(F0: torch.Tensor, F1: torch.Tensor, nums: torch.Tensor
     F1 [B, N1, C] (C <= 8), nums [B, 2] int32 on the device. Each pair's
     (idx, d2) equal ``nn1_scan`` on that pair bit for bit."""
     idx, d, launched = _run_batched("nn1_scan", 0, SCAN_MAX_C, F0, F1, nums)
-    nn1_scan_batched.launches += launched
+    cuda_build.count_launch(nn1_scan_batched, launched)
     return idx, d
 
 
@@ -213,7 +214,7 @@ def nn1_mma_batched(F0: torch.Tensor, F1: torch.Tensor, nums: torch.Tensor
     """Kernel B over a batch of pairs in one launch sequence (8 < C <= 64);
     each pair's (idx, d2) equal ``nn1_mma`` on that pair bit for bit."""
     idx, d, launched = _run_batched("nn1_mma", SCAN_MAX_C, _MAX_C, F0, F1, nums)
-    nn1_mma_batched.launches += launched
+    cuda_build.count_launch(nn1_mma_batched, launched)
     return idx, d
 
 
@@ -227,7 +228,7 @@ def find_nn_cuda(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int
         raise ValueError(f"the 1-NN kernels take 1 <= C <= {_MAX_C}, got C={c}")
     kernel = nn1_scan if c <= SCAN_MAX_C else nn1_mma
     idx, d = kernel(F0, F1, num0, num1)
-    find_nn_cuda.launches += F0.shape[0] > 0
+    cuda_build.count_launch(find_nn_cuda, F0.shape[0] > 0)
     return idx, d
 
 
@@ -247,6 +248,12 @@ def find_nn(F0: torch.Tensor, F1: torch.Tensor, num0: int | None = None,
         return find_nn_cuda(F0.float().contiguous(), F1.float().contiguous(),
                             num0, num1)
     return find_nn_plain(F0, F1, num0, num1)
+
+
+def find_nn_xyz(xyz0: torch.Tensor, xyz1: torch.Tensor, num0: int | None = None,
+                num1: int | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spatial 1-NN of points [N, 3]: ``find_nn`` (on the card, ``nn1_scan``)."""
+    return find_nn(xyz0, xyz1, num0, num1)
 
 
 def pair_counts(num0, num1, device) -> torch.Tensor:
@@ -285,6 +292,18 @@ def find_knn_cpu(feat0, feat1, knn: int = 1, return_distance: bool = False):
     if return_distance:
         return nn_inds, dists
     return nn_inds
+
+
+def find_knn(F0: torch.Tensor, F1: torch.Tensor, num0: int, num1: int, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest of the first ``num1`` F1 rows (squared L2, ascending) for
+    each F0 row [N0, C]: ``find_knn_batched`` on one pair. Returns (idx
+    [N0, k] int64, d2 [N0, k] f32); rows past ``num0`` give (0, +inf), as
+    the JAX package's ``find_knn``."""
+    idx, d2 = find_knn_batched(F0[None], F1[None], [num0], [num1], k)
+    valid = (torch.arange(F0.shape[0], device=F0.device) < num0)[:, None]
+    return (torch.where(valid, idx[0], torch.zeros_like(idx[0])),
+            torch.where(valid, d2[0], torch.full_like(d2[0], float("inf"))))
 
 
 def find_knn_batched(F0: torch.Tensor, F1: torch.Tensor, num0, num1, k: int

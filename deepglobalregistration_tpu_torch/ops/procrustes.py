@@ -52,6 +52,14 @@ def weighted_procrustes(X: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     return R, t
 
 
+def procrustes(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor | None = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unweighted alignment of [..., N, 3] point sets; with a boolean
+    ``mask`` [..., N] the masked-out rows are left out."""
+    w = torch.ones(X.shape[:-1], device=X.device) if mask is None else mask.float()
+    return weighted_procrustes(X, Y, w)
+
+
 def procrustes_batch(X: torch.Tensor, Y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unweighted alignment of a batch of point sets [B, N, 3]."""
     return weighted_procrustes(X, Y, torch.ones(X.shape[:-1], device=X.device))

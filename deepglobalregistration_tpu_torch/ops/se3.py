@@ -7,6 +7,8 @@ Counterpart of the JAX package's ``ops/se3.py``. Matmuls run in full f32:
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -46,3 +48,27 @@ def rt_to_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T[..., :3, 3] = t
     T[..., 3, 3] = 1.0
     return T
+
+
+def matrix_inverse_se3(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of rigid transforms [..., 4, 4]: (R^T, -R^T t)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return rt_to_matrix(Rt, -torch.matmul(Rt, T[..., :3, 3, None])[..., 0])
+
+
+def random_rotation(generator: torch.Generator,
+                    rotation_range_deg: float = 360.0) -> torch.Tensor:
+    """A rotation [3, 3] about a uniformly drawn axis by an angle uniform in
+    +/- range / 2 (Rodrigues' formula; the JAX package draws from a key,
+    this from ``generator``, on its device)."""
+    dev = generator.device
+    axis = torch.randn(3, generator=generator, device=dev)
+    axis = axis / torch.clamp(torch.linalg.norm(axis), min=1e-8)
+    angle = (torch.rand((), generator=generator, device=dev) - 0.5) \
+        * math.radians(rotation_range_deg)
+    zero = torch.zeros((), device=dev)
+    K = torch.stack([torch.stack([zero, -axis[2], axis[1]]),
+                     torch.stack([axis[2], zero, -axis[0]]),
+                     torch.stack([-axis[1], axis[0], zero])])
+    return (torch.eye(3, device=dev) + torch.sin(angle) * K
+            + (1 - torch.cos(angle)) * torch.matmul(K, K))

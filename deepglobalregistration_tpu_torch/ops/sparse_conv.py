@@ -111,6 +111,20 @@ def sparse_sum_pool(feats: torch.Tensor, em: EdgeMap) -> torch.Tensor:
     return out[:em.n_out].to(feats.dtype)
 
 
+def sparse_avg_pool(feats: torch.Tensor, em: EdgeMap) -> torch.Tensor:
+    """``sparse_sum_pool`` over each output row's edge count (at least 1),
+    in f32, stored in the input's dtype."""
+    counts = torch.bincount(em.tile_out, minlength=em.n_out + 1)[:em.n_out]
+    summed = sparse_sum_pool(feats, em).float()
+    return (summed / torch.clamp(counts, min=1)[:, None]).to(feats.dtype)
+
+
+def cat_features(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """ME.cat: the features of two sparse tensors on one coordinate map,
+    side by side."""
+    return torch.cat([a, b], dim=-1)
+
+
 def linear(feats: torch.Tensor, kernel: torch.Tensor,
            bias: torch.Tensor | None = None) -> torch.Tensor:
     """A kernel-size-1 convolution on its own grid: x @ W[0] (+ bias)."""

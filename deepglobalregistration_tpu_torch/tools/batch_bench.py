@@ -1,16 +1,16 @@
-"""register_batch against register_many on the same pairs.
+"""register_batch against register_many and the register() loop on the same pairs.
 
 Counterpart of the JAX package's ``tools/batch_bench.py``: at the bench
 configuration (``bench.py``'s ResUNetBN2C FCGF with the committed weights
 ``weights/fcgf_synthetic.pkl``, bf16 convs, 5 cm voxel), ``--batch`` pairs
 ``synthetic_pair(n=--points, seed=i % 4)`` (``bench.py``'s stream cycles
 its four pairs) go through ``register_batch(..., force_vmapped=True)`` (the
-batched program, in sub-batches of ``_MAX_SUB_BATCH``) and through
-``register_many`` (``register()`` pair by pair), in turns (batch, many,
-many, batch) after one warm-up call of each. One JSON line gives each
-turn's s/pair, peak device memory and 1-NN launches, the batched turns'
-stage seconds and reruns, and the largest |T_batch - T_register| over the
-first pairs.
+batched program, in sub-batches of ``_MAX_SUB_BATCH``), through
+``register_many`` (the pipelined window) and through ``register()`` pair
+by pair ("loop"), in turns (batch, many, loop, loop, many, batch) after one
+warm-up call of each. One JSON line gives each turn's s/pair, peak device
+memory and 1-NN launches, the batched turns' stage seconds and reruns, and
+the largest |T_batch - T_register| over the first pairs.
 
     python -m deepglobalregistration_tpu_torch.tools.batch_bench [--batch 8]
         [--points 30000] [--device cuda]
@@ -48,10 +48,12 @@ def _sync(dgr) -> None:
         torch.cuda.synchronize(dgr.device)
 
 
-def run_turn(dgr, kind: str, xyz0s, xyz1s) -> dict:
-    """One call of ``register_batch(force_vmapped=True)`` ("batch") or
-    ``register_many`` ("many") with the stage timers, the 1-NN launch
-    counts and the peak memory set to 0 just before it."""
+def run_turn(dgr, kind: str, xyz0s, xyz1s, window: int | None = None) -> dict:
+    """One call of ``register_batch(force_vmapped=True)`` ("batch"),
+    ``register_many`` ("many", at ``window``) or a loop of ``register()``
+    ("loop") with the stage timers, the 1-NN launch counts and the peak
+    memory set to 0 just before it. "many" and "loop" give each pair's
+    ``PairRecord`` (``records``)."""
     for t in list(dgr.stage_timers.values()) + list(dgr.batch_stage_timers.values()):
         t.reset()
     for w in _COUNTED:
@@ -60,10 +62,18 @@ def run_turn(dgr, kind: str, xyz0s, xyz1s) -> dict:
     if dgr.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dgr.device)
     t0 = time.perf_counter()
+    records = None
     if kind == "batch":
         T = dgr.register_batch(xyz0s, xyz1s, force_vmapped=True)
+    elif kind == "many":
+        T = dgr.register_many(xyz0s, xyz1s, window=window)
+        records = list(dgr.last_many)
     else:
-        T = dgr.register_many(xyz0s, xyz1s)
+        T, records = [], []
+        for a, b in zip(xyz0s, xyz1s):
+            T.append(dgr.register(a, b))
+            records.append(dgr.last_record)
+        T = np.stack(T)
     _sync(dgr)
     wall = time.perf_counter() - t0
     r = {"kind": kind, "T": T, "s_per_pair": wall / len(xyz0s),
@@ -71,6 +81,8 @@ def run_turn(dgr, kind: str, xyz0s, xyz1s) -> dict:
                           if dgr.device.type == "cuda" else None),
          "launches": {w.__name__: w.launches for w in _COUNTED},
          "register_stage_s": {s: dgr.stage_timers[s].total_time for s in STAGES}}
+    if records is not None:
+        r["records"] = records
     if kind == "batch":
         lb = {k: list(v) for k, v in dgr.last_batch.items()}
         r.update(batch_stage_s={s: dgr.batch_stage_timers[s].total_time for s in STAGES},
@@ -80,14 +92,22 @@ def run_turn(dgr, kind: str, xyz0s, xyz1s) -> dict:
     return r
 
 
-def compare(dgr, xyz0s, xyz1s, order=("batch", "many", "many", "batch")) -> dict:
-    """Turns of both paths on the same pairs in one process; returns the
-    turns (without their transforms) and each path's mean s/pair."""
+def compare(dgr, xyz0s, xyz1s,
+            order=("batch", "many", "loop", "loop", "many", "batch")) -> dict:
+    """Turns of the paths on the same pairs in one process; returns the
+    turns (with their transforms) and each path's mean s/pair."""
     turns = [run_turn(dgr, kind, xyz0s, xyz1s) for kind in order]
     mean = {k: float(np.mean([t["s_per_pair"] for t in turns if t["kind"] == k]))
             for k in set(order)}
-    return {"turns": [{k: v for k, v in t.items() if k != "T"} for t in turns],
-            "mean_s_per_pair": mean, "T_batch": turns[order.index("batch")]["T"]}
+    return {"turns": turns, "mean_s_per_pair": mean}
+
+
+def printable(turn: dict) -> dict:
+    """A turn without its transforms, its records as JSON fields."""
+    out = {k: v for k, v in turn.items() if k not in ("T", "records")}
+    if "records" in turn:
+        out["records"] = [{"branch": r.branch, **r.iterations} for r in turn["records"]]
+    return out
 
 
 def main() -> None:
@@ -103,7 +123,8 @@ def main() -> None:
     run_turn(dgr, "batch", xyz0s, xyz1s)  # warm-up
     run_turn(dgr, "many", xyz0s, xyz1s)
     out = compare(dgr, xyz0s, xyz1s)
-    T_batch = out.pop("T_batch")
+    T_batch = next(t["T"] for t in out["turns"] if t["kind"] == "batch")
+    out["turns"] = [printable(t) for t in out["turns"]]
     gap = [float(np.abs(T_batch[i] - dgr.register(xyz0s[i], xyz1s[i])).max())
            for i in range(min(2, args.batch))]
     kind = (torch.cuda.get_device_name(dgr.device) if dgr.device.type == "cuda"

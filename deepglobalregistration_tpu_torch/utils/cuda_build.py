@@ -3,6 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``_build/lib<name>-<hash>.so`` (the hash is of the source and the ``*.cuh``
 headers beside it, so an edited source or header rebuilds) at first use. Nothing here runs at import time.
+
+Threads may launch kernels at once (``register_many``): the first load of a
+library runs under a lock, and so does each add to a wrapper's launch count
+(``count_launch``).
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -22,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -75,6 +82,16 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        _loaded[name] = lib
+        with _load_lock:  # one build and load, whichever thread comes first
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build((name,))[name]))
+                _loaded[name] = lib
     return lib
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches``. ``+=`` on an attribute reads, adds
+    and writes, so two threads adding at once could lose a launch."""
+    with _count_lock:
+        wrapper.launches += n

@@ -89,6 +89,19 @@ def kernel_totals(log_dir: str) -> Tuple[float, int]:
     return sum(e["dur"] for e in ks) / 1000.0, len(ks)
 
 
+def kernel_busy_ms(log_dir: str) -> float:
+    """Device ms in which at least one CUDA kernel of the newest trace ran:
+    the union of the kernels' intervals, so kernels overlapping on several
+    streams count once."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in _kernels(load_trace(log_dir) or []))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1000.0
+
+
 def _frame_key(name: str) -> str | None:
     """``deepglobalregistration_tpu_torch/<file>:<line>`` of a Python frame
     event of this package (the line is the function's first), else None."""

@@ -50,8 +50,12 @@ class Timer:
         self.start_time = time.perf_counter()
 
     def toc(self, average: bool = True) -> float:
-        self.diff = time.perf_counter() - self.start_time
-        self.total_time += self.diff
+        self.add(time.perf_counter() - self.start_time)
+        return self.avg if average else self.diff
+
+    def add(self, seconds: float) -> None:
+        """Count one call of ``seconds`` timed elsewhere."""
+        self.diff = seconds
+        self.total_time += seconds
         self.calls += 1
         self.avg = self.total_time / self.calls
-        return self.avg if average else self.diff

@@ -286,3 +286,59 @@ def test_make_data_loader_same_batches():
         _assert_items_equal(tuple(batch["pair_batch"]),
                             tuple(np.asarray(a) for a in jbatch["pair_batch"]))
         assert batch["len_batch"] == jbatch["len_batch"]
+
+
+def _labels_both(items, rng, q=256):
+    """(the port's batch, ``q`` predicted pairs a pair, half of them the
+    pair's own matches, and their labels by the port, the JAX package and
+    the reference's host formulation on the whole match list)."""
+    import jax
+    import torch
+
+    from deepglobalregistration_tpu.core import correspondence as jcorr
+    from deepglobalregistration_tpu_torch.core import correspondence
+
+    pred = np.zeros((len(items), q, 2), np.int32)
+    for b, item in enumerate(items):
+        m = np.asarray(item[6])
+        pred[b, :q // 2] = m[rng.randint(0, len(m), q // 2)]
+        pred[b, q // 2:] = np.stack([rng.randint(0, len(item[0]), q // 2),
+                                     rng.randint(0, len(item[1]), q // 2)], 1)
+    pred_num = np.full(len(items), q, np.int32)
+    pb, jpb = collate.make_pair_batch(items), jcollate.make_pair_batch(items)
+    got = correspondence.find_correct_correspondence(
+        torch.as_tensor(pb.pos_pairs), pb.pos_num, torch.as_tensor(pred), pred_num)
+    want = jax.vmap(jcorr.find_correct_correspondence)(
+        jpb.pos_pairs, jpb.pos_num, pred, pred_num)
+    exact = np.stack([correspondence.find_correct_correspondence_np(np.asarray(it[6]), p)
+                      for it, p in zip(items, pred)])
+    return pb, pred, got.numpy(), np.asarray(want), exact
+
+
+def test_labels_below_the_cap_equal_the_jax_labels():
+    pb, _, got, want, exact = _labels_both(_synthetic_items(),
+                                           np.random.RandomState(0))
+    assert pb.pos_pairs.shape[1] <= 131072
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, exact)
+    assert got.any() and not got.all()
+
+
+def test_labels_above_the_cap_keep_every_match():
+    """400 x 400 points, every pair a match (160000 > 131072): the port
+    keeps them all and labels every predicted pair positive; the JAX package
+    keeps the first 131072 matches (row-major) and labels the rest negative."""
+    rng = np.random.RandomState(1)
+    xyz = rng.rand(400, 3).astype(np.float32)
+    coords = np.floor(xyz / 0.05).astype(np.int32)
+    ii, jj = np.meshgrid(np.arange(400), np.arange(400), indexing="ij")
+    matches = np.stack([ii.ravel(), jj.ravel()], 1).astype(np.int32)
+    ones = np.ones((400, 1), np.float32)
+    item = (xyz, xyz, coords, coords, ones, ones, matches, np.eye(4, dtype=np.float32),
+            {})
+    pb, pred, got, want, exact = _labels_both([item], rng)
+    assert int(pb.pos_num[0]) == len(matches) == pb.pos_pairs.shape[1]
+    np.testing.assert_array_equal(got, exact)
+    assert got.all()
+    np.testing.assert_array_equal(want, pred[..., 0] * 400 + pred[..., 1] < 131072)
+    assert not want.all()

@@ -91,3 +91,39 @@ def test_icp_full_scan_matches():
         a, b, jnp.int32(700), jnp.int32(650), 0.1, init=T))(src, tgt, init)
     assert res.iterations == int(jres.iterations) > 1
     np.testing.assert_allclose(res.T.numpy(), np.asarray(jres.T), atol=1e-4)
+
+
+@pytest.mark.parametrize("use_candidates,rot,shift", [(False, 0.05, 0.01),
+                                                      (True, 0.01, 0.025)])
+def test_icp_rmse_floor_matches(use_candidates, rot, shift):
+    """``f32_rmse_floor=1e-3`` (the JAX package's legacy rule) stops the
+    port's ICP at the JAX ICP's iteration, earlier than the default rule,
+    at the same pose; the checked wrapper and a batch of two pass it on."""
+    rng = np.random.RandomState(4)
+    src = (rng.rand(700, 3) * 1.5).astype(np.float32)
+    tgt = (src + rng.randn(700, 3).astype(np.float32) * 0.003 + 0.02).astype(np.float32)
+    tgt = tgt[rng.permutation(700)][:650]
+    init = np.eye(4, dtype=np.float32)
+    init[:3, :3] = Rotation.from_rotvec([0, 0, rot]).as_matrix()
+    init[:3, 3] = shift
+    kw = dict(init=T_(init), use_candidates=use_candidates)
+    res = icp.registration_icp(T_(src), T_(tgt), 0.1, f32_rmse_floor=1e-3, **kw)
+    jres = jax.jit(lambda a, b, T: jicp.registration_icp(
+        a, b, jnp.int32(700), jnp.int32(650), 0.1, init=T, f32_rmse_floor=1e-3,
+        use_candidates=use_candidates))(src, tgt, init)
+    assert res.cand_ok and bool(jres.cand_ok)
+    assert res.iterations == int(jres.iterations)
+    assert res.iterations < icp.registration_icp(T_(src), T_(tgt), 0.1, **kw).iterations
+    np.testing.assert_allclose(res.T.numpy(), np.asarray(jres.T), atol=1e-4)
+    if use_candidates:
+        checked = icp.registration_icp_checked(T_(src), T_(tgt), 0.1, init=T_(init),
+                                               f32_rmse_floor=1e-3)
+        assert checked.iterations == res.iterations
+        np.testing.assert_array_equal(checked.T.numpy(), res.T.numpy())
+    src2 = T_(np.stack([src, src]))
+    tgt2 = T_(np.stack([tgt, tgt]))
+    batch = icp.registration_icp(src2, tgt2, 0.1, init=T_(np.stack([init, init])),
+                                 use_candidates=use_candidates, num0=[700, 700],
+                                 num1=[650, 650], f32_rmse_floor=1e-3)
+    assert batch.iterations == [res.iterations] * 2
+    np.testing.assert_allclose(batch.T.numpy(), np.stack([res.T.numpy()] * 2), atol=1e-4)

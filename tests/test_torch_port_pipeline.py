@@ -93,6 +93,22 @@ def test_register_many_is_register_in_a_loop(pair_of_pipelines):
     np.testing.assert_array_equal(many[1], dgr.register(b, a))
 
 
+def test_register_many_matches_jax_register_many(pair_of_pipelines):
+    """The pipelined window against the JAX package's pipelined stream on
+    the pairs of test_register_matches_jax (the same compiled programs)."""
+    jdgr, dgr = pair_of_pipelines
+    rng = np.random.RandomState(0)
+    xyz = (rng.rand(400, 3) * 1.2).astype(np.float32)
+    c, s = np.cos(0.1), np.sin(0.1)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    moved = [xyz + np.array([8, -8, 16], np.float32) * 0.05,
+             (xyz @ R.T + 0.02)[rng.permutation(400)][:380].astype(np.float32)]
+    xs, ys = [xyz, xyz, xyz, xyz], moved + moved
+    T = dgr.register_many(xs, ys)
+    np.testing.assert_allclose(T, jdgr.register_many(xs, ys), atol=1e-3)
+    assert [r.branch for r in dgr.last_many] == ["refine"] * 4
+
+
 def test_gate_falls_back_to_seeded_ransac():
     """Weights all clipped to 0 fail the gate: register() takes RANSAC with
     draws from the instance's seeded generator, so it repeats exactly."""
@@ -141,7 +157,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "tools/parallel_bench.py", "utils/profiling.py",
                  "utils/integration.py", "scripts/analyze_stats.py",
                  "tools/synthetic_e2e.py", "tools/export_bench_weights.py",
-                 "tools/golden_fcgf.py", "tools/ransac_sweep.py"):
+                 "tools/golden_fcgf.py", "tools/ransac_sweep.py",
+                 "tools/stream_probe.py", "tools/icp_deviation.py"):
         assert f"deepglobalregistration_tpu_torch/{path}" in walked
     # The root scripts, tools, demo and bench import the JAX package.
     banned = ("jax", "jaxlib", "optax", "ml_dtypes", "deepglobalregistration_tpu",

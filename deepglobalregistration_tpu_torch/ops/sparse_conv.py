@@ -6,20 +6,29 @@ Counterpart of the JAX package's ``ops/sparse_conv.py:35-184`` and
 
     out[p] = sum over edges (k, j, p) of  W[k]^T x[j]   (+ bias)
 
-computed as a gather of input rows into single-offset tiles, one batched
-matmul against each tile's kernel slice, and an ``index_add_`` into the
-output. Arithmetic follows the JAX package's bf16 path: inputs and weights
-are rounded to the compute dtype, products and sums run in f32 (TF32 off),
-and the result is stored in the compute dtype.
+computed as the JAX package's gather-sum composition (``edge_conv.py:557``):
+a gather of input rows into single-offset tiles, one batched matmul against
+each tile's kernel slice (the edges' products, in tile order), then a slot
+sum (``ops/slot_sum.py``, the kernel ``csrc/slot_sum.cu`` on the card) in
+which each output row adds its own products one after another in ascending
+slot order, that is in ascending offset. The sum's order depends only on
+the map: the same call gives the same bits on every run, however the tiles
+are chunked, where an atomic ``index_add_`` would sum a row in another
+order each time. Arithmetic follows the JAX package's bf16 path: inputs and
+weights are rounded to the compute dtype, products and sums run in f32
+(TF32 off), and the result is stored in the compute dtype. The JAX path
+also rounds each product to the compute dtype before the sum
+(``edge_conv.py:571``); the port sums the f32 products.
 
 Gradients reach the features, kernels and biases (the JAX package
-differentiates its XLA convs): the conv's backward is written out
-(``_SparseConv``) so that it keeps only the conv's input; sum pooling and
-the norms go through autograd. Rows are taken with ``index_select``, whose
-backward is an ``index_add_`` (atomic adds on the card): the backward of
-``x[idx]`` sorts the indices and accumulates each run of duplicates
-serially, 0.68 of a 0.93 s train step on the H100 when the convs took
-their rows and kernel slices that way.
+differentiates its XLA convs). The conv's backward is written out
+(``_SparseConv``) so that it keeps only the conv's input: the input
+gradient is the same conv over the input rows' slot lists, the kernel
+gradient a slot sum of each tile's g^T dy over its offset's tiles, in tile
+order. Sum pooling (``_SumPool``) sums rows through the same lists in both
+directions, and the instance norm's per-cloud sums are one-hot matmuls. No
+accumulation here is atomic: the backward of ``x[idx]`` or of
+``index_select`` would be an ``index_add_``, so none is left to autograd.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from .edge_conv import EdgeMap
+from .slot_sum import slot_sum, slot_sum_rows
 
 # Tiles per batched matmul: bounds the gathered [chunk, T, Cin] rows and the
 # [chunk, Cin, Cout] kernel slices.
@@ -34,21 +44,22 @@ _MAX_CHUNK_ELEMS = 1 << 26
 
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor, em: EdgeMap, src: torch.Tensor,
-          dst: torch.Tensor, n_dst: int) -> torch.Tensor:
-    """out[dst[e]] += x[src[e]] @ kernel[k(e)] over the map's tiles, in x's
-    dtype; slots that read row ``x.shape[0]`` read zeros, and row ``n_dst``
-    of the result takes the padding slots' writes and is dropped."""
+          dst_ptr: torch.Tensor, dst_slots: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """out[r] = the sum of x[src[s]] @ kernel[k(s)] over row r's slots s
+    (``dst_ptr`` / ``dst_slots``), in ascending slot order, in x's dtype;
+    slots that read row ``x.shape[0]`` read zeros."""
     cin, cout = kernel.shape[1], kernel.shape[2]
     t = em.tile
     x = torch.cat([x, x.new_zeros((1, cin))])
-    out = x.new_zeros((n_dst + 1, cout))
+    out = x.new_zeros((n_dst, cout))
     chunk = max(1, _MAX_CHUNK_ELEMS // (cin * (t + cout)))
     for s in range(0, em.tile_k.shape[0], chunk):
         tk = em.tile_k[s:s + chunk]
         rows = slice(s * t, (s + tk.shape[0]) * t)
         g = x.index_select(0, src[rows]).view(-1, t, cin)
-        out.index_add_(0, dst[rows], torch.bmm(g, kernel.index_select(0, tk)).view(-1, cout))
-    return out[:n_dst]
+        products = torch.bmm(g, kernel.index_select(0, tk)).view(-1, cout)
+        slot_sum(out, products, s * t, dst_ptr, dst_slots)
+    return out
 
 
 class _SparseConv(torch.autograd.Function):
@@ -56,14 +67,15 @@ class _SparseConv(torch.autograd.Function):
     gathered rows and the tiles' kernel slices are taken again in backward
     rather than held from the forward (they are the step's largest saved
     tensors). Input gradient: the same conv over the swapped edge lists
-    (out -> in) with W[k]^T; kernel gradient: each tile's g^T dy, added
-    into its offset's slice."""
+    (out -> in, the input rows' slot lists) with W[k]^T; kernel gradient:
+    each tile's g^T dy, summed over its offset's tiles in tile order (an
+    offset's tiles are contiguous: offset k's slot list is its tiles)."""
 
     @staticmethod
     def forward(ctx, x, kernel, em):
         ctx.em = em
         ctx.save_for_backward(x, kernel)
-        return _conv(x, kernel, em, em.tile_in, em.tile_out, em.n_out)
+        return _conv(x, kernel, em, em.tile_in, em.out_ptr, em.out_slots, em.n_out)
 
     @staticmethod
     def backward(ctx, dy):
@@ -72,19 +84,25 @@ class _SparseConv(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dk = None
         if ctx.needs_input_grad[0]:
-            dx = _conv(dy, kernel.transpose(1, 2), em, em.tile_out, em.tile_in, em.n_in)
+            dx = _conv(dy, kernel.transpose(1, 2), em, em.tile_out, em.in_ptr,
+                       em.in_slots, em.n_in)
         if ctx.needs_input_grad[1]:
-            cin, cout, t = kernel.shape[1], kernel.shape[2], em.tile
+            k, cin, cout = kernel.shape
+            t, n_tiles = em.tile, em.tile_k.shape[0]
             xp = torch.cat([x, x.new_zeros((1, cin))])
             dyp = torch.cat([dy, dy.new_zeros((1, cout))])
-            dk = torch.zeros_like(kernel)
+            dk = kernel.new_zeros((k, cin * cout))
+            k_ptr = torch.searchsorted(
+                em.tile_k, torch.arange(k + 1, device=kernel.device)).int()
+            tiles = torch.arange(n_tiles, dtype=torch.int32, device=kernel.device)
             chunk = max(1, _MAX_CHUNK_ELEMS // (t * (cin + cout)))
-            for s in range(0, em.tile_k.shape[0], chunk):
-                tk = em.tile_k[s:s + chunk]
-                rows = slice(s * t, (s + tk.shape[0]) * t)
+            for s in range(0, n_tiles, chunk):
+                rows = slice(s * t, min(s + chunk, n_tiles) * t)
                 g = xp.index_select(0, em.tile_in[rows]).view(-1, t, cin)
                 gy = dyp.index_select(0, em.tile_out[rows]).view(-1, t, cout)
-                dk.index_add_(0, tk, torch.bmm(g.transpose(1, 2), gy))
+                slot_sum(dk, torch.bmm(g.transpose(1, 2), gy).view(-1, cin * cout),
+                         s, k_ptr, tiles)
+            dk = dk.view(k, cin, cout)
         return dx, dk, None
 
 
@@ -99,16 +117,34 @@ def sparse_conv(feats: torch.Tensor, kernel: torch.Tensor, em: EdgeMap,
     return out.to(feats.dtype)
 
 
+class _SumPool(torch.autograd.Function):
+    """Sum pooling through the map's slot lists: out[p] adds x[j] over its
+    edges in ascending slot order, and the backward dx[j] adds dy[p] over
+    the input row's slot lists in the same way."""
+
+    @staticmethod
+    def forward(ctx, x, em):
+        ctx.em = em
+        out = x.new_zeros((em.n_out, x.shape[1]))
+        return slot_sum_rows(out, x, em.tile_in, 0, em.tile_in.shape[0],
+                             em.out_ptr, em.out_slots)
+
+    @staticmethod
+    def backward(ctx, dy):
+        em = ctx.em
+        dy = dy.contiguous()
+        dx = dy.new_zeros((em.n_in, dy.shape[1]))
+        return slot_sum_rows(dx, dy, em.tile_out, 0, em.tile_out.shape[0],
+                             em.in_ptr, em.in_slots), None
+
+
 def sparse_sum_pool(feats: torch.Tensor, em: EdgeMap) -> torch.Tensor:
     """Unweighted sum over a map's edges (MinkowskiSumPooling, and with the
     transposed map MinkowskiPoolingTranspose): out[p] = sum of x[j] over the
-    edges (k, j, p). Sums in f32, stored in the input's dtype."""
-    x = torch.cat([feats.float(), feats.new_zeros((1, feats.shape[1]),
-                                                  dtype=torch.float32)])
-    out = torch.zeros((em.n_out + 1, feats.shape[1]), dtype=torch.float32,
-                      device=feats.device)
-    out.index_add_(0, em.tile_out, x.index_select(0, em.tile_in))
-    return out[:em.n_out].to(feats.dtype)
+    edges (k, j, p). Sums in f32 (f64 for f64 features), stored in the
+    input's dtype."""
+    acc = torch.promote_types(feats.dtype, torch.float32)
+    return _SumPool.apply(feats.to(acc).contiguous(), em).to(feats.dtype)
 
 
 def sparse_avg_pool(feats: torch.Tensor, em: EdgeMap) -> torch.Tensor:
@@ -210,16 +246,17 @@ def instance_norm(feats: torch.Tensor, batch: torch.Tensor, batch_size: int,
     """Per-cloud, per-channel normalisation (MinkowskiInstanceNorm without
     affine). ``batch`` [N] holds each row's cloud index: statistics are
     taken over each cloud's rows alone, as the JAX package's ``vmap`` of
-    ``instance_norm`` over [B, N, C] takes them, in f32 (biased variance)."""
+    ``instance_norm`` over [B, N, C] takes them, in f32 (biased variance).
+    Each cloud's sums, and the spread of its statistics over its rows, are
+    matmuls with the one-hot [B, N] cloud matrix: a fixed order, forward and
+    backward, where an ``index_add_`` would add with atomics."""
     x = feats.float()
-    c = x.shape[1]
-    # index_add_ rather than bincount, whose output size syncs the host.
-    count = x.new_zeros((batch_size, 1)).index_add_(
-        0, batch, x.new_ones((x.shape[0], 1))).clamp_min(1)
-    mean = x.new_zeros((batch_size, c)).index_add_(0, batch, x) / count
-    d = x - mean.index_select(0, batch)
-    var = x.new_zeros((batch_size, c)).index_add_(0, batch, d * d) / count
-    return (d * torch.rsqrt(var + eps).index_select(0, batch)).to(feats.dtype)
+    clouds = torch.arange(batch_size, device=x.device)
+    onehot = (batch[None, :] == clouds[:, None]).to(x.dtype)
+    count = onehot.sum(1, keepdim=True).clamp_min(1)
+    d = x - onehot.T @ ((onehot @ x) / count)
+    var = (onehot @ (d * d)) / count
+    return (d * (onehot.T @ torch.rsqrt(var + eps))).to(feats.dtype)
 
 
 def relu(feats: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD = PKG_DIR / "_build"
-SOURCES = ("nn1_scan", "nn1_mma", "gather")
+SOURCES = ("nn1_scan", "nn1_mma", "gather", "slot_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -158,7 +158,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils/integration.py", "scripts/analyze_stats.py",
                  "tools/synthetic_e2e.py", "tools/export_bench_weights.py",
                  "tools/golden_fcgf.py", "tools/ransac_sweep.py",
-                 "tools/stream_probe.py", "tools/icp_deviation.py"):
+                 "tools/stream_probe.py", "tools/icp_deviation.py",
+                 "ops/slot_sum.py"):
         assert f"deepglobalregistration_tpu_torch/{path}" in walked
     # The root scripts, tools, demo and bench import the JAX package.
     banned = ("jax", "jaxlib", "optax", "ml_dtypes", "deepglobalregistration_tpu",

@@ -30,18 +30,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      inputs, and time there the kernel, the plain version and one PyTorch
      library call computing the same function;
      then the stage breakdown (with the slot lists' share of the plan
-     builds), the slot-sum kernels (``phase_slot_sum``: ``slot_sum`` and
-     ``slot_sum_rows`` from ``csrc/slot_sum.cu`` bit for bit their plain
-     versions given the same products, on the bench FCGF level-0,
-     stride-2 down and transposed up maps, the bench 6D level-0 map and a
-     KITTI-scale level-0 map, forward, dx and dk; sum pooling on the SP
-     families' plan; each timed beside its bound and ``index_add_`` in
-     default and deterministic mode; the conv module's bits under a cut
-     chunk size and on a repeat call; the instance norm on an IN-family
-     plan, two calls alike and within 1e-5 of f64), the RANSAC branch, the
-     bf16 forward against the f32 one, and the card against the CPU's plain
-     path on a small pair; ``slot_sum`` must have launched on every
-     register() of the path;
+     builds), the slot-sum kernels (``phase_slot_sum``: ``slot_sum``,
+     ``slot_sum_runs`` and ``slot_sum_rows`` from ``csrc/slot_sum.cu`` bit
+     for bit their plain versions given the same products, on the bench
+     FCGF level-0, stride-2 down and transposed up maps, the bench 6D
+     level-0 and level-3 maps and a KITTI-scale level-0 map, forward and
+     dx by row, dk by runs, the forward and dk also split in two launches;
+     sum pooling on the SP families' plan; each timed warm and L2-cold
+     beside its bound and ``index_add_`` in default and deterministic
+     mode; the conv module's bits under a cut chunk size and on a repeat
+     call; the instance norm on an IN-family plan, two calls alike and
+     within 1e-5 of f64), the RANSAC branch, the bf16 forward against the
+     f32 one, and the card against the CPU's plain path on a small pair;
+     ``slot_sum`` must have launched on every register() of the path;
   5. the bench pairs again with ``icp_candidates="on"`` (candidate-list ICP
      and its checked fallback), held to the same pose limits;
   6. the staged API on bench pair 0 (``preprocess`` through
@@ -112,12 +113,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
  13. training at the bench configuration, full width, batch 4
      (``phase_train``): 8 steps on one batch (finite, falling loss), one
      step holding ``nn1_mma_batched`` to one launch and to its plain
-     version, the step's stage split, s/step, peak memory (with and
-     without ``--remat``) and busy share, one step on the card against the
-     CPU, ``train.main`` with validation, resume and the checkpoint as
-     ``DeepGlobalRegistration``'s weights, and 4 FCGF hardest-contrastive
-     steps; one step twice from the same state: every conv backward's dx
-     and dk bit for bit on its own inputs, each leaf's gap printed;
+     version and printing its slot-sum launches (``slot_sum_runs``, the
+     convs' dk, and ``slot_sum`` must have launched), the step's stage
+     split, s/step, peak memory (with and without ``--remat``) and busy
+     share with the slot-sum kernels' device ms, one step on the card
+     against the CPU, ``train.main`` with validation, resume and the
+     checkpoint as ``DeepGlobalRegistration``'s weights, and 4 FCGF
+     hardest-contrastive steps; one step twice from the same state: every
+     conv backward's dx and dk bit for bit on its own inputs, each leaf's
+     gap printed;
  14. data parallelism (``phase_parallel``, ``parallel/data_parallel.py``):
      the train step on 2 ranks sharing ``cuda:0`` through gloo against the
      one-process step on bench batch 4 (loss 1e-5 relative; gradients and
@@ -521,12 +525,14 @@ def breakdown(dgr, pair, sec_per_pair: float, label: str = "bench") -> dict:
     return p
 
 
-def profile_busy(fn, unprofiled_s: float) -> dict | None:
+def profile_busy(fn, unprofiled_s: float, by_name: str | None = None) -> dict | None:
     """One fn() under ``utils/profiling.trace`` (torch.profiler, no Python
     stacks): its wall time, the CUDA kernels' busy time and launches, the
     top ten kernels, and the busy share over the profiled wall time and over
-    ``unprofiled_s`` (the same work's time without the profiler). None when
-    the trace holds no kernel time."""
+    ``unprofiled_s`` (the same work's time without the profiler); with
+    ``by_name``, every kernel whose name holds it, ms summed by name, and
+    their share of the kernel time. None when the trace holds no kernel
+    time."""
     import tempfile
 
     from deepglobalregistration_tpu_torch.utils import profiling
@@ -541,12 +547,18 @@ def profile_busy(fn, unprofiled_s: float) -> dict | None:
         dev_ms, launches = profiling.kernel_totals(tmp)
         busy_ms = profiling.kernel_busy_ms(tmp)
         top = profiling.summarize_trace(tmp, top=10)
+        named = ({k: v for k, v in profiling.summarize_trace(tmp, top=10 ** 6).items()
+                  if by_name in k} if by_name else {})
     if dev_ms <= 0:
         print("device busy share: not measured (the profiler saw no device time)")
         return None
     # Busy: the time in which at least one kernel ran (kernels on several
     # streams overlap); kernel_ms: the kernels' times summed.
-    return {"profiled_wall_ms": wall * 1e3, "device_kernel_ms": dev_ms,
+    r = {} if not by_name else {
+        "named": by_name, "named_kernels_ms": named,
+        "named_kernel_ms": sum(named.values()),
+        "named_share_of_kernel_ms": sum(named.values()) / dev_ms}
+    return {**r, "profiled_wall_ms": wall * 1e3, "device_kernel_ms": dev_ms,
             "device_busy_ms": busy_ms,
             "device_busy_share_profiled": busy_ms / (wall * 1e3),
             "device_busy_share_unprofiled": busy_ms / (unprofiled_s * 1e3),
@@ -794,20 +806,23 @@ def reset_slot_counts() -> None:
     from deepglobalregistration_tpu_torch.ops import slot_sum as ss
 
     ss.slot_sum_cuda.launches = ss.slot_sum_rows_cuda.launches = 0
+    ss.slot_sum_runs_cuda.launches = 0
 
 
 def slot_counts() -> dict:
     from deepglobalregistration_tpu_torch.ops import slot_sum as ss
 
     return {"slot_sum": ss.slot_sum_cuda.launches,
-            "slot_sum_rows": ss.slot_sum_rows_cuda.launches}
+            "slot_sum_rows": ss.slot_sum_rows_cuda.launches,
+            "slot_sum_runs": ss.slot_sum_runs_cuda.launches}
 
 
 def slot_sum_bound_ms(src_bytes: int, rows: int, c: int, n_slots: int, adds: int):
     """(ms, by): the larger of the bytes' time (the sources read once: the
     real slots' products, or the rows pooling reads; out [rows, c] f32 read
-    and written once; the slot lists, n_slots int32 slots and rows + 1
-    pointers, read once) at 3.35 TB/s and the adds' at 67 TFLOP/s."""
+    and written once; the slot lists, n_slots int32 slots (0 for runs) and
+    rows + 1 pointers, read once) at 3.35 TB/s and the adds' at 67
+    TFLOP/s."""
     t_bytes = (src_bytes + 8 * rows * c + 4 * (n_slots + rows + 1)) / PEAK_BYTES
     t_ops = adds / PEAK_F32_FLOPS
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -816,9 +831,11 @@ def slot_sum_bound_ms(src_bytes: int, rows: int, c: int, n_slots: int, adds: int
 def _hold_slot_case(label: str, kernel, plain, out0, library, bound) -> dict:
     """The kernel against its plain version on the same inputs, bit for bit,
     then its time (CUDA graph replays of 50 calls; eager: back-to-back
-    calls), the plain version's, and the library call's (``index_add_``)
-    in default and in deterministic mode."""
+    calls; cold: one call after a 64 MB write, the L2 cold), the plain
+    version's, and the library call's (``index_add_``) in default and in
+    deterministic mode."""
     from deepglobalregistration_tpu_torch.tools.gather_bench import time_ms
+    from deepglobalregistration_tpu_torch.tools.slot_sum_bench import cold_ms
 
     got, want = kernel(out0.clone()), plain(out0.clone())
     torch.cuda.synchronize()
@@ -829,7 +846,8 @@ def _hold_slot_case(label: str, kernel, plain, out0, library, bound) -> dict:
     out = out0.clone()
     r = {"case": label, "rows": int(out0.shape[0]), "c": int(out0.shape[1]),
          "ms": time_ms(lambda: kernel(out)), "eager_ms": cuda_ms(lambda: kernel(out)),
-         "plain_ms": cuda_ms(lambda: plain(out), 3), "library_ms": cuda_ms(library)}
+         "cold_ms": cold_ms(lambda: kernel(out)),
+         "plain_ms": cuda_ms(lambda: plain(out), 2), "library_ms": cuda_ms(library)}
     torch.use_deterministic_algorithms(True)
     try:
         r["library_deterministic_ms"] = cuda_ms(library, 5)
@@ -837,93 +855,40 @@ def _hold_slot_case(label: str, kernel, plain, out0, library, bound) -> dict:
         torch.use_deterministic_algorithms(False)
     r["bound_ms"], r["bound_by"] = bound
     r["max_abs_err"] = 0.0
-    print(f"slot_sum {label}: kernel {r['ms']:.4f} ms (eager {r['eager_ms']:.4f}), "
-          f"plain {r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms "
-          f"(deterministic {r['library_deterministic_ms']:.4f}), bound "
-          f"{r['bound_ms']:.4f} ms ({r['bound_by']}); bit for bit the plain "
+    print(f"slot_sum {label}: kernel {r['ms']:.4f} ms (eager {r['eager_ms']:.4f}, "
+          f"L2-cold {r['cold_ms']:.4f}), plain {r['plain_ms']:.4f} ms, index_add_ "
+          f"{r['library_ms']:.4f} ms (deterministic {r['library_deterministic_ms']:.4f}), "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); bit for bit the plain "
           "version", flush=True)
     return r
 
 
-def _conv_slot_cases(label: str, em, cin: int, cout: int, g) -> list:
-    """A conv map's three slot sums on random features and kernels at its
-    widths, each given the same products P on both sides: the forward (P by
-    the output rows' lists), the input gradient (dy through W^T, by the
-    input rows' lists) and the kernel gradient (each tile's g^T dy, by
-    offset over the tiles). The forward is also held split at a tile in
-    the middle of the map: two launches equal one."""
+def _hold_slot_split(c: dict) -> dict:
+    """A conv map's sum in two launches equals one, bit for bit: the
+    forward split at a tile in the middle of the map, dk (runs) at a tile
+    in the middle of the longest run. Returns where it was split."""
     from deepglobalregistration_tpu_torch.ops import slot_sum as ss
+    from deepglobalregistration_tpu_torch.ops.edge_conv import TILE
 
-    t, n_tiles, e = em.tile, em.tile_k.shape[0], em.n_edges
-    k = int(em.tile_k[-1]) + 1
-    x = torch.randn(em.n_in + 1, cin, device="cuda", generator=g)
-    dy = torch.randn(em.n_out + 1, cout, device="cuda", generator=g)
-    x[-1], dy[-1] = 0, 0  # the zero rows padding slots read
-    w = torch.randn(k, cin, cout, device="cuda", generator=g) / (k * cin) ** 0.5
-    gx = x.index_select(0, em.tile_in).view(-1, t, cin)
-    gy = dy.index_select(0, em.tile_out).view(-1, t, cout)
-    fwd = torch.bmm(gx, w.index_select(0, em.tile_k)).view(-1, cout)
-    bwd = torch.bmm(gy, w.transpose(1, 2).index_select(0, em.tile_k)).view(-1, cin)
-    dkp = torch.bmm(gx.transpose(1, 2), gy).view(n_tiles, cin * cout)
-    k_ptr = torch.searchsorted(em.tile_k, torch.arange(k + 1, device="cuda")).int()
-    tiles = torch.arange(n_tiles, dtype=torch.int32, device="cuda")
-
-    mid = (n_tiles // 2) * t
-    whole = ss.slot_sum_cuda(torch.zeros(em.n_out, cout, device="cuda"), fwd, 0,
-                             em.out_ptr, em.out_slots)
-    split = torch.zeros(em.n_out, cout, device="cuda")
-    ss.slot_sum_cuda(split, fwd[:mid], 0, em.out_ptr, em.out_slots)
-    ss.slot_sum_cuda(split, fwd[mid:], mid, em.out_ptr, em.out_slots)
+    P, ptr = c["P"], c["ptr"]
+    whole = c["kernel"](c["out0"].clone())
+    split = c["out0"].clone()
+    if c["slots"] is None:
+        runs = ptr[1:] - ptr[:-1]
+        j = int(runs.argmax())
+        cut = int(ptr[j]) + max(1, int(runs[j]) // 2)
+        ss.slot_sum_runs_cuda(split, P[:cut], 0, ptr)
+        ss.slot_sum_runs_cuda(split, P[cut:], cut, ptr)
+        where = f"tile {cut}, in offset {j}'s run of {int(runs[j])}"
+    else:
+        cut = P.shape[0] // (2 * TILE) * TILE  # a tile boundary in the middle
+        ss.slot_sum_cuda(split, P[:cut], 0, ptr, c["slots"])
+        ss.slot_sum_cuda(split, P[cut:], cut, ptr, c["slots"])
+        where = f"slot {cut}"
     torch.cuda.synchronize()
     if not torch.equal(whole, split):
-        fail(f"slot_sum {label}: two chunks split at slot {mid} differ from one")
-
-    cases = []
-    for kind, P, ptr, slots, dst, rows, c, n_src in (
-            ("forward", fwd, em.out_ptr, em.out_slots, em.tile_out, em.n_out, cout, e),
-            ("dx", bwd, em.in_ptr, em.in_slots, em.tile_in, em.n_in, cin, e),
-            ("dk", dkp, k_ptr, tiles, em.tile_k, k, cin * cout, n_tiles)):
-        lib_out = torch.zeros(rows + 1, c, device="cuda")
-        r = _hold_slot_case(
-            f"{label} {kind} ({rows} rows, C={c})",
-            lambda o, P=P, ptr=ptr, slots=slots: ss.slot_sum_cuda(o, P, 0, ptr, slots),
-            lambda o, P=P, ptr=ptr, slots=slots: ss.slot_sum_plain(o, P, 0, ptr, slots),
-            torch.zeros(rows, c, device="cuda"),
-            lambda lib_out=lib_out, dst=dst, P=P: lib_out.index_add_(0, dst, P),
-            slot_sum_bound_ms(n_src * c * 4, rows, c, int(slots.shape[0]), n_src * c))
-        r.update(map=label, kind=kind, slots=int(slots.shape[0]))
-        cases.append(r)
-    return cases
-
-
-def _pool_slot_cases(label: str, em, c: int, g) -> list:
-    """Sum pooling's direct-read slot sums on a map: forward (x's rows by
-    the output rows' lists) and backward (dy's rows by the input rows')."""
-    from deepglobalregistration_tpu_torch.ops import slot_sum as ss
-
-    cases = []
-    s = em.tile_in.shape[0]
-    for kind, n_src, rows, src_rows, ptr, slots, dst in (
-            ("forward", em.n_in, em.n_out, em.tile_in, em.out_ptr, em.out_slots,
-             em.tile_out),
-            ("dx", em.n_out, em.n_in, em.tile_out, em.in_ptr, em.in_slots, em.tile_in)):
-        x = torch.randn(n_src, c, device="cuda", generator=g)
-        xp = torch.cat([x, x.new_zeros((1, c))])
-        lib_out = torch.zeros(rows + 1, c, device="cuda")
-        r = _hold_slot_case(
-            f"{label} {kind} ({rows} rows, C={c})",
-            lambda o, x=x, a=src_rows, p=ptr, sl=slots: ss.slot_sum_rows_cuda(
-                o, x, a, 0, s, p, sl),
-            lambda o, x=x, a=src_rows, p=ptr, sl=slots: ss.slot_sum_rows_plain(
-                o, x, a, 0, s, p, sl),
-            torch.zeros(rows, c, device="cuda"),
-            lambda o=lib_out, d=dst, a=src_rows, xp=xp: o.index_add_(
-                0, d, xp.index_select(0, a)),
-            slot_sum_bound_ms(n_src * c * 4 + 8 * em.n_edges, rows, c, em.n_edges,
-                              em.n_edges * c))
-        r.update(map=label, kind=kind, slots=em.n_edges)
-        cases.append(r)
-    return cases
+        fail(f"slot_sum {c['case']}: two launches split at {where} differ from one")
+    return {"split_at": where}
 
 
 def slot_lists_ms(plan) -> float:
@@ -944,12 +909,15 @@ def phase_slot_sum(plans) -> dict:
     versions, bit for bit, on the same inputs at the main path's maps and
     widths, each timed beside its bound and ``index_add_`` (default and
     deterministic):
-    - ``slot_sum``: the bench FCGF plan of pair 0 (ResUNetBN2C widths: the
-      level-0 same-stride map at 32 -> 32, the stride-2 down map at 32 ->
-      64, the transposed up map at 128 -> 64), the bench 6D inlier net's
-      level-0 map (32 -> 32) and a KITTI-scale level-0 map (lidar_like_pair
-      seed 0, 0.3 m, 32 -> 32): forward, dx and dk each, the forward also
-      split in two chunks;
+    - ``slot_sum`` (forward, dx) and ``slot_sum_runs`` (dk): the bench FCGF
+      plan of pair 0 (ResUNetBN2C widths: the level-0 same-stride map at 32
+      -> 32, the stride-2 down map at 32 -> 64, the transposed up map at 128
+      -> 64), the bench 6D inlier net's level-0 map (32 -> 32), a
+      KITTI-scale level-0 map (lidar_like_pair seed 0, 0.3 m, 32 -> 32)
+      and the 6D level-3 map at the inlier net's widest convs (256 -> 256)
+      (``tools/slot_sum_bench.slot_maps``), each also timed L2-cold; the
+      forward also split in two chunks, dk in the middle of its longest
+      run;
     - ``slot_sum_rows``: sum pooling on the SP families' plan of pair 0
       (level 0 -> 1 at C = 32, its transpose at C = 64), forward and dx;
     - the module path: ``sparse_conv`` forward and both gradients on the
@@ -958,30 +926,23 @@ def phase_slot_sum(plans) -> dict:
     - the instance norm on an IN-family plan's level 0 (the bench grid, two
       clouds, C = 32), forward and gradient: two calls bit for bit alike,
       and within 1e-5 of the f64 CPU result."""
-    from deepglobalregistration_tpu_torch.config import default_config
-    from deepglobalregistration_tpu_torch.models.unet_plan import build_unet_plan
     from deepglobalregistration_tpu_torch.ops import sparse_conv as sc
-    from deepglobalregistration_tpu_torch.ops import sparse_grid
-    from deepglobalregistration_tpu_torch.utils.synthetic import lidar_like_pair
+    from deepglobalregistration_tpu_torch.tools.slot_sum_bench import slot_cases
 
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
-    plan3, plan6 = plans["plan3"], plans["plan6"]
-    cases = (_conv_slot_cases("bench FCGF level-0 same-stride", plan3.selfs[0], 32, 32, g)
-             + _conv_slot_cases("bench FCGF stride-2 down 0->1", plan3.downs[0], 32, 64, g)
-             + _conv_slot_cases("bench FCGF transposed up 1->0", plan3.ups[0], 128, 64, g)
-             + _conv_slot_cases("bench 6D level-0 same-stride", plan6.selfs[0], 32, 32, g))
-    kcfg = default_config(**KITTI)
-    xk0, xk1, _, _ = lidar_like_pair(seed=0)
-    gk = torch.cat([sparse_grid.voxelize(torch.as_tensor(x, device="cuda"), kcfg.voxel_size,
-                                         b)[1] for b, x in enumerate((xk0, xk1))])
-    plank = build_unet_plan(gk, 2, kcfg.feat_conv1_kernel_size, 0, 4, ones_input=True)
-    cases += _conv_slot_cases("KITTI-scale level-0 same-stride", plank.selfs[0], 32, 32, g)
-    plan_sp = build_unet_plan(plans["grid"], 2, 7, 0, 4, ones_input=True,
-                              with_pooling=True)
-    rows_cases = (_pool_slot_cases("bench SP pool 0->1", plan_sp.pool_downs[0], 32, g)
-                  + _pool_slot_cases("bench SP pool transpose 1->0", plan_sp.pool_ups[0],
-                                     64, g))
+    plan3 = plans["plan3"]
+    cases, rows_cases = [], []
+    for c in slot_cases(plans, g):
+        r = _hold_slot_case(c["case"], c["kernel"], c["plain"], c["out0"], c["library"],
+                            slot_sum_bound_ms(*c["bound"]))
+        r.update(map=c["map"], kind=c["kind"], slots=c["bound"][3])
+        if c["pool"]:
+            rows_cases.append(r)
+            continue
+        if c["kind"] in ("forward", "dk"):
+            r.update(_hold_slot_split(c))
+        cases.append(r)
 
     # The module path: chunking and repeat calls change no bit.
     em = plan3.selfs[0]
@@ -1827,7 +1788,7 @@ def phase_models(knn) -> dict:
     torch.cuda.synchronize()
     out["slot_launches"] = slot_counts()  # 11 forwards of each of the 47
     print(json.dumps({"models_slot_sum_launches": out["slot_launches"]}), flush=True)
-    if min(out["slot_launches"].values()) < 1:
+    if min(out["slot_launches"]["slot_sum"], out["slot_launches"]["slot_sum_rows"]) < 1:
         fail(f"models: slot-sum launches {out['slot_launches']}: the convs or the "
              "SP families' sum pooling did not go through their kernels")
     del nets
@@ -2463,12 +2424,15 @@ def phase_train(knn) -> dict:
     reset_counts(knn)
     stats = trainer.step_fn(batch)
     torch.cuda.synchronize()
-    launches = counts(knn)
-    print(json.dumps({"train_step_launches": launches}), flush=True)
+    launches, slot = counts(knn), slot_counts()
+    print(json.dumps({"train_step_launches": {**launches, **slot}}), flush=True)
     if launches["nn1_mma_batched"] != 1 or launches["total"] or \
             launches["nn1_scan_batched"]:
         fail(f"train: a step launched {launches}, expected nn1_mma_batched once")
-    out["launches"] = launches
+    if not slot["slot_sum_runs"] or not slot["slot_sum"]:
+        fail(f"train: a step launched the slot sums {slot}: the conv backwards' dk "
+             "(slot_sum_runs) or the convs (slot_sum) left the kernels")
+    out["launches"], out["slot_launches"] = launches, slot
     with torch.no_grad():
         feats = ts.fcgf_features(trainer.fcgf, batch)
     b = host_batch.num0.shape[0]
@@ -2526,7 +2490,7 @@ def phase_train(knn) -> dict:
                    "stage_peak_gib": {k: timers[k].peak_gib for k in stages},
                    "peak_gib": peak, "card": card_line()}
     print(json.dumps({"train_step": out["step"]}), flush=True)
-    busy = profile_busy(lambda: trainer.step_fn(batch), ms_step / 1e3)
+    busy = profile_busy(lambda: trainer.step_fn(batch), ms_step / 1e3, by_name="slot_")
     if busy is not None:
         print(json.dumps({"train_step_profile": busy}), flush=True)
     out["busy"] = busy
@@ -3361,27 +3325,35 @@ def main() -> int:
                 "bound_by", "shape")})
         entries.append(entry)
     slot = e["slot"]
-    for name, cases, launches, path in (
-            ("slot_sum", slot["cases"], e["slot_launches"]["slot_sum"],
-             "register() on the 4 bench pairs (phase 4)"),
+    slot_runs = [c for c in slot["cases"] if c["kind"] == "dk"]
+    for name, cases, launches, path, replaces, library_call in (
+            ("slot_sum", [c for c in slot["cases"] if c["kind"] != "dk"],
+             e["slot_launches"]["slot_sum"], "register() on the 4 bench pairs (phase 4)",
+             "deepglobalregistration_tpu/ops/edge_conv.py:557",
+             "out.index_add_(0, dst, P): each product added at its output row"),
+            ("slot_sum_runs", slot_runs, tr["slot_launches"]["slot_sum_runs"],
+             "one train step (phase 13 b): every conv backward's kernel gradient",
+             "deepglobalregistration_tpu/ops/edge_conv.py:662",
+             "dk.index_add_(0, tile_k, P): each tile's g^T dy added at its offset"),
             ("slot_sum_rows", slot["rows_cases"], models["slot_launches"]["slot_sum_rows"],
              "the 47 registry forwards, 11 calls each (phase 11 a): the SP "
-             "families' sum pooling")):
+             "families' sum pooling", "deepglobalregistration_tpu/ops/edge_conv.py:557",
+             "out.index_add_(0, dst, x.index_select(0, rows))")):
         head = cases[0]
         entries.append({
             "name": name, "route": "cuda",
             "source": "deepglobalregistration_tpu_torch/csrc/slot_sum.cu",
-            "replaces": "deepglobalregistration_tpu/ops/edge_conv.py:557",
+            "replaces": replaces,
             "launches": launches, "launches_path": path,
             "launches_models": models["slot_launches"][name],
+            "launches_train_step": tr["slot_launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+            **{k: head[k] for k in ("ms", "eager_ms", "cold_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms",
                                     "library_deterministic_ms")},
             "shape": head["case"],
-            "library_call": "out.index_add_(0, dst, P) (pooling: with "
-                            "x.index_select(0, rows) as P)",
-            "cases": [{k: c[k] for k in ("case", "ms", "eager_ms", "plain_ms",
+            "library_call": library_call,
+            "cases": [{k: c[k] for k in ("case", "ms", "eager_ms", "cold_ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms",
                                          "library_deterministic_ms")}
                       for c in cases]})

@@ -2,30 +2,37 @@
 after another in ascending slot order.
 
 Counterpart of the JAX package's gather-sum edge conv composition
-(``ops/edge_conv.py:557`` ``_conv_gather`` / ``:579`` ``_slot_sum_tiered``):
-every edge's product is computed first, in tile order, and each output row
-then sums its own slots. Row r owns ``slots[ptr[r]:ptr[r + 1]]`` (int32,
-ascending global slot positions); a call adds those in the chunk's range
-[s0, s1):
+(``ops/edge_conv.py:557`` ``_conv_gather`` / ``:579`` ``_slot_sum_tiered``)
+and of its kernel gradient's in-order tile sum (``:662`` in
+``_chunk_bwd_step``): every edge's product is computed first, in tile
+order, and each output row then sums its own slots. Row r owns
+``slots[ptr[r]:ptr[r + 1]]`` (int32, ascending global slot positions); a
+call adds those in the chunk's range [s0, s1):
 
     acc = out[r];  for s in order: acc += P[s - s0];  out[r] = acc
 
 (``slot_sum``), or ``acc += x[rows[s]]`` (``slot_sum_rows``: sum pooling,
-which has no products). Every sum is in f32 (f64 on the CPU's parity path)
-and follows exactly that sequence, so a row's bits depend only on the map
-and the values: not on how the slots are chunked, on the stream or on the
-thread schedule.
+which has no products), or, where every row's slots are a run of
+consecutive positions, the run ``[ptr[r], ptr[r + 1])`` itself with no slot
+list (``slot_sum_runs``: the kernel gradient, a row an offset over its
+tiles). Every sum is in f32 (f64 on the CPU's parity path) and follows
+exactly that sequence, so a row's bits depend only on the map and the
+values: not on how the slots are chunked, on the stream or on the thread
+schedule.
 
-The kernels are ``csrc/slot_sum.cu``. The wrappers launch them on CUDA
-tensors (f32 only; anything else raises) and take the plain versions only
-for CPU tensors. The plain versions add in the same sequence. On the card
-(where ``chip_smoke.py`` holds the kernels to them bit for bit) round j
-adds each row's j-th slot in the chunk, one ``index_add_`` a round, whose
-targets are unique, so the card's atomic adds give one result too; for a
-conv map a row holds at most one slot an offset and its slots ascend with
-the offset, so this is the per-offset loop ``for k: out[dst_k] += P_k``.
-On the CPU, whose ``index_add_`` adds in index order, one call over the
-chunk's slots in slot order gives that sequence at the cost of one pass.
+The kernels are ``csrc/slot_sum.cu``: a by-row kernel (``slot_sum``,
+``slot_sum_rows``) and a runs kernel (``slot_sum_runs``). The wrappers
+launch them on CUDA tensors (f32 only; anything else raises) and take the
+plain versions only for CPU tensors. The plain versions add in the same
+sequence (``slot_sum_runs_plain`` is ``slot_sum_plain`` over the slots
+``arange(ptr[-1])``). On the card (where ``chip_smoke.py`` holds the
+kernels to them bit for bit) round j adds each row's j-th slot in the
+chunk, one ``index_add_`` a round, whose targets are unique, so the card's
+atomic adds give one result too; for a conv map a row holds at most one
+slot an offset and its slots ascend with the offset, so this is the
+per-offset loop ``for k: out[dst_k] += P_k``. On the CPU, whose
+``index_add_`` adds in index order, one call over the chunk's slots in slot
+order gives that sequence at the cost of one pass.
 """
 
 from __future__ import annotations
@@ -98,16 +105,24 @@ def slot_sum_rows_plain(out, x, rows, s0, s1, ptr, slots):
     return _plain(out, x, rows, s0, s1, ptr, slots)
 
 
+def slot_sum_runs_plain(out, P, s0, ptr):
+    """``slot_sum_plain`` with each row's run as its slot list."""
+    slots = torch.arange(int(ptr[-1]), dtype=torch.int32, device=ptr.device)
+    return slot_sum_plain(out, P, s0, ptr, slots)
+
+
 def _check(out, src, rows, s0, s1, ptr, slots) -> None:
-    tensors = [out, src, ptr, slots] + ([] if rows is None else [rows])
-    if not all(t.is_cuda and t.device == out.device for t in tensors):
-        raise ValueError("slot_sum: every tensor must lie on one CUDA device")
+    """Types first, so that a wrong type raises on any device; ``slots``
+    None: the runs form."""
     if out.dtype != torch.float32 or src.dtype != torch.float32:
         raise TypeError(f"slot_sum takes f32 on the card, got {out.dtype} and "
                         f"{src.dtype} (the f64 parity path runs on the CPU)")
-    if ptr.dtype != torch.int32 or slots.dtype != torch.int32 or (
+    if ptr.dtype != torch.int32 or (slots is not None and slots.dtype != torch.int32) or (
             rows is not None and rows.dtype != torch.int64):
         raise TypeError("slot_sum: ptr and slots are int32, rows int64")
+    tensors = [t for t in (out, src, ptr, slots, rows) if t is not None]
+    if not all(t.is_cuda and t.device == out.device for t in tensors):
+        raise ValueError("slot_sum: every tensor must lie on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("slot_sum takes contiguous tensors")
     if out.dim() != 2 or src.dim() != 2 or out.shape[1] != src.shape[1]:
@@ -116,7 +131,8 @@ def _check(out, src, rows, s0, s1, ptr, slots) -> None:
     if out.shape[0] < ptr.shape[0] - 1:
         raise ValueError(f"slot_sum: {ptr.shape[0] - 1} rows' slot lists for "
                          f"an output of {out.shape[0]} rows")
-    if max(slots.shape[0], s1, s0) > _INT32_MAX or min(s0, s1) < 0:
+    n_slots = 0 if slots is None else slots.shape[0]
+    if max(n_slots, s1, s0) > _INT32_MAX or min(s0, s1) < 0:
         raise ValueError("slot_sum: slot positions must fit int32")
 
 
@@ -124,7 +140,8 @@ def _lib():
     lib = cuda_build.load("slot_sum")
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn, args in ((lib.dgr_slot_sum, [p, i, i, p, p, i, i, p, p]),
-                     (lib.dgr_slot_sum_rows, [p, p, i, i, p, p, i, i, p, p])):
+                     (lib.dgr_slot_sum_rows, [p, p, i, i, p, p, i, i, p, p]),
+                     (lib.dgr_slot_sum_runs, [p, i, i, p, i, i, p, p])):
         if fn.argtypes is None:  # argtypes last: set means all set
             fn.restype = ctypes.c_int
             fn.argtypes = args
@@ -163,8 +180,21 @@ def slot_sum_rows_cuda(out, x, rows, s0, s1, ptr, slots):
     return out
 
 
+def slot_sum_runs_cuda(out, P, s0, ptr):
+    """Launch ``dgr_slot_sum_runs`` on the current stream: out += P's rows
+    over each row's run."""
+    s1 = s0 + P.shape[0]
+    _check(out, P, None, s0, s1, ptr, None)
+    n_rows, c = ptr.shape[0] - 1, out.shape[1]
+    if n_rows > 0 and c > 0 and s1 > s0:
+        _launch("dgr_slot_sum_runs", P, s0, s1, ptr, n_rows, c, out)
+        cuda_build.count_launch(slot_sum_runs_cuda)
+    return out
+
+
 slot_sum_cuda.launches = 0
 slot_sum_rows_cuda.launches = 0
+slot_sum_runs_cuda.launches = 0
 
 
 def slot_sum(out: torch.Tensor, P: torch.Tensor, s0: int, ptr: torch.Tensor,
@@ -186,3 +216,13 @@ def slot_sum_rows(out: torch.Tensor, x: torch.Tensor, rows: torch.Tensor,
     if out.is_cuda or x.is_cuda:
         return slot_sum_rows_cuda(out, x, rows, s0, s1, ptr, slots)
     return slot_sum_rows_plain(out, x, rows, s0, s1, ptr, slots)
+
+
+def slot_sum_runs(out: torch.Tensor, P: torch.Tensor, s0: int,
+                  ptr: torch.Tensor) -> torch.Tensor:
+    """out [>= R, C] += P [S, C] over runs, in place: row r adds ``P[s - s0]``
+    for each s in [ptr[r], ptr[r + 1]) within [s0, s0 + S), in ascending
+    order; ptr [R + 1] int32, ascending. Returns out."""
+    if out.is_cuda or P.is_cuda:
+        return slot_sum_runs_cuda(out, P, s0, ptr)
+    return slot_sum_runs_plain(out, P, s0, ptr)

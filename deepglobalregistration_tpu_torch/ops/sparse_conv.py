@@ -25,8 +25,9 @@ differentiates its XLA convs). The conv's backward is written out
 (``_SparseConv``) so that it keeps only the conv's input: the input
 gradient is the same conv over the input rows' slot lists, the kernel
 gradient a slot sum of each tile's g^T dy over its offset's tiles, in tile
-order. Sum pooling (``_SumPool``) sums rows through the same lists in both
-directions, and the instance norm's per-cloud sums are one-hot matmuls. No
+order (``slot_sum_runs``: an offset's tiles are one run). Sum pooling
+(``_SumPool``) sums rows through the same lists in both directions, and
+the instance norm's per-cloud sums are one-hot matmuls. No
 accumulation here is atomic: the backward of ``x[idx]`` or of
 ``index_select`` would be an ``index_add_``, so none is left to autograd.
 """
@@ -36,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from .edge_conv import EdgeMap
-from .slot_sum import slot_sum, slot_sum_rows
+from .slot_sum import slot_sum, slot_sum_rows, slot_sum_runs
 
 # Tiles per batched matmul: bounds the gathered [chunk, T, Cin] rows and the
 # [chunk, Cin, Cout] kernel slices.
@@ -69,7 +70,8 @@ class _SparseConv(torch.autograd.Function):
     tensors). Input gradient: the same conv over the swapped edge lists
     (out -> in, the input rows' slot lists) with W[k]^T; kernel gradient:
     each tile's g^T dy, summed over its offset's tiles in tile order (an
-    offset's tiles are contiguous: offset k's slot list is its tiles)."""
+    offset's tiles are contiguous: offset k's slots are the run of its
+    tiles, ``k_ptr[k]`` to ``k_ptr[k + 1]``)."""
 
     @staticmethod
     def forward(ctx, x, kernel, em):
@@ -94,14 +96,13 @@ class _SparseConv(torch.autograd.Function):
             dk = kernel.new_zeros((k, cin * cout))
             k_ptr = torch.searchsorted(
                 em.tile_k, torch.arange(k + 1, device=kernel.device)).int()
-            tiles = torch.arange(n_tiles, dtype=torch.int32, device=kernel.device)
             chunk = max(1, _MAX_CHUNK_ELEMS // (t * (cin + cout)))
             for s in range(0, n_tiles, chunk):
                 rows = slice(s * t, min(s + chunk, n_tiles) * t)
                 g = xp.index_select(0, em.tile_in[rows]).view(-1, t, cin)
                 gy = dyp.index_select(0, em.tile_out[rows]).view(-1, t, cout)
-                slot_sum(dk, torch.bmm(g.transpose(1, 2), gy).view(-1, cin * cout),
-                         s, k_ptr, tiles)
+                slot_sum_runs(dk, torch.bmm(g.transpose(1, 2), gy).view(-1, cin * cout),
+                              s, k_ptr)
             dk = dk.view(k, cin, cout)
         return dx, dk, None
 

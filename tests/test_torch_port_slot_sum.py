@@ -13,7 +13,8 @@ transposed up map, the k2/s2 pooling map) and a small 6D map:
     order and the card's rounds), the per-offset form
     ``for k: out[dst_k] += P_k`` and the sequential by-row sum agree bit for
     bit, on chunks that split an offset; the CUDA wrappers refuse CPU
-    tensors rather than fall back.
+    tensors rather than fall back (the runs wrapper also refuses f64 values
+    and int64 pointers).
 (d) forward, dx and dk against the JAX ``sparse_conv_edges`` and its
     ``jax.vjp``. f32: within 1e-5 of each result's largest entry (sums in
     another order; measured 2^-22.5 on y and dx, dk equal). bf16 (inputs
@@ -29,6 +30,12 @@ transposed up map, the k2/s2 pooling map) and a small 6D map:
     (with its gradient) against the JAX ``sparse_sum_pool`` /
     ``instance_norm``, within 1e-5 of the largest entry in f32 (bf16 pooling:
     2^-8, one rounding of the stored result).
+(f) the runs form (``slot_sum_runs``, the kernel gradient's): on the CPU it
+    equals ``slot_sum_plain`` over ``arange`` slots and the sequential
+    by-row sum bit for bit, on chunks that split a run and with an empty
+    run; the conv's dk through it, with one tile a chunk, equals the
+    earlier formula (``slot_sum`` over the offsets' pointers and ``arange``
+    tiles, one chunk) bit for bit. Exact: the same adds in the same order.
 """
 
 import functools
@@ -254,6 +261,22 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                     P.shape[0], em.out_ptr, em.out_slots)
 
 
+@pytest.mark.parametrize("case", ["cpu", "f64", "int64_ptr"])
+def test_runs_cuda_wrapper_refuses(case):
+    em = _maps()["self"][1]
+    k_ptr = torch.searchsorted(em.tile_k, torch.arange(28)).int()
+    out, P = torch.zeros(27, 4), torch.zeros(em.tile_k.shape[0], 4)
+    if case == "cpu":
+        with pytest.raises(ValueError, match="CUDA"):
+            slot_sum.slot_sum_runs_cuda(out, P, 0, k_ptr)
+    elif case == "f64":
+        with pytest.raises(TypeError, match="f32"):
+            slot_sum.slot_sum_runs_cuda(out.double(), P.double(), 0, k_ptr)
+    else:
+        with pytest.raises(TypeError, match="int32"):
+            slot_sum.slot_sum_runs_cuda(out, P, 0, k_ptr.long())
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_conv_fn(out_rows, dtype):
     def run(x, w, jm, g):
@@ -336,3 +359,57 @@ def test_instance_norm_matches_jax():
         want_y[i], want_dx[i] = np.asarray(jy)[b, :len(i)], np.asarray(jdx)[b, :len(i)]
     assert _rel_gap(y.detach(), want_y) <= F32_TOL
     assert _rel_gap(dx, want_dx) <= F32_TOL
+
+
+def _runs_case(name):
+    """(ptr, n_slots) of a map's kernel gradient (offset k's tiles), or of a
+    hand-made list with an empty run (row 1) and runs of 1-4 slots."""
+    if name == "synthetic":
+        return torch.tensor([0, 3, 3, 7, 8, 8, 12], dtype=torch.int32), 12
+    em = _maps()[name][1]
+    k = int(em.tile_k[-1]) + 1
+    return torch.searchsorted(em.tile_k, torch.arange(k + 1)).int(), em.tile_k.shape[0]
+
+
+@pytest.mark.parametrize("name", ["self", "down", "6d", "synthetic"])
+def test_runs_plain_equals_arange_slots(name):
+    ptr, n = _runs_case(name)
+    rows = ptr.shape[0] - 1
+    rng = np.random.RandomState(5)
+    P = torch.from_numpy(rng.randn(n, 6).astype(np.float32) * 100)
+    base = torch.from_numpy(rng.randn(rows + 2, 6).astype(np.float32))
+    slots = torch.arange(n, dtype=torch.int32)
+    assert int((ptr[1:] - ptr[:-1]).max()) >= 2  # some run spans 2 slots
+    # Chunks of 1, 2 and 3 slots, each splitting runs, then one chunk.
+    for width in (1, 2, 3, n):
+        a, b, c = base.clone(), base.clone(), base.clone()
+        for s0 in range(0, n, width):
+            s1 = min(s0 + width, n)
+            before = a.clone()
+            slot_sum.slot_sum_runs(a, P[s0:s1], s0, ptr)
+            slot_sum.slot_sum_plain(b, P[s0:s1], s0, ptr, slots)
+            _by_row(c, P[s0:s1], s0, s1, ptr, slots)
+            assert torch.equal(a, b) and torch.equal(a, c)
+            # A row without a slot in the chunk keeps its bits, and so do
+            # the rows past the pointers.
+            lo, hi = torch.clamp(ptr[:-1], min=s0), torch.clamp(ptr[1:], max=s1)
+            idle = torch.cat([hi <= lo, torch.ones(2, dtype=torch.bool)])
+            assert torch.equal(a[idle], before[idle])
+        assert torch.equal(a, slot_sum.slot_sum_runs_plain(base.clone(), P, 0, ptr))
+
+
+@pytest.mark.parametrize("name", ["self", "down", "6d"])
+def test_dk_through_runs_equals_arange_slot_sum(name, monkeypatch):
+    em, x, w, g = _inputs(name)
+    # One tile a dk chunk: every offset's run is split across chunks.
+    monkeypatch.setattr(sc, "_MAX_CHUNK_ELEMS", CIN * (TILE + COUT))
+    assert sc._MAX_CHUNK_ELEMS // (TILE * (CIN + COUT)) == 0
+    _, _, dk = _port_conv(em, x, w, g)
+    k, t, n_tiles = w.shape[0], em.tile, em.tile_k.shape[0]
+    gx = torch.cat([x, x.new_zeros((1, CIN))]).index_select(0, em.tile_in)
+    gy = torch.cat([g, g.new_zeros((1, COUT))]).index_select(0, em.tile_out)
+    P = torch.bmm(gx.view(-1, t, CIN).transpose(1, 2), gy.view(-1, t, COUT))
+    k_ptr = torch.searchsorted(em.tile_k, torch.arange(k + 1)).int()
+    want = slot_sum.slot_sum(torch.zeros(k, CIN * COUT), P.reshape(n_tiles, -1), 0,
+                             k_ptr, torch.arange(n_tiles, dtype=torch.int32))
+    assert torch.equal(dk, want.view(k, CIN, COUT))

@@ -43,6 +43,7 @@ from one seeded host generator, so the window returns what a loop of
 from __future__ import annotations
 
 import collections
+import itertools
 import logging
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, NamedTuple
@@ -57,7 +58,7 @@ from ..models.unet_plan import build_unet_plan
 from ..ops import icp as icp_ops
 from ..ops import knn, ransac, se3, sparse_grid
 from ..parallel import data_parallel as dp
-from ..utils import checkpoint, convert, device as device_utils
+from ..utils import checkpoint, convert, device as device_utils, spans
 from ..utils.fold_bn import fold_batch_norms
 from ..utils.timer import Timer
 from . import registration
@@ -134,10 +135,12 @@ class DeepGlobalRegistration:
             raise ValueError("icp_candidates must be auto|on|off, got "
                              f"{self.icp_candidates!r}")
         # Summed over calls on the calling thread (register_many adds each
-        # pair's record as it collects the pair).
+        # pair's record as it collects the pair). A stage on the card is
+        # timed by CUDA events on its thread's stream, read when the timer
+        # is read (utils/spans.py): its interval on the card's timeline.
         self.feat_timer = Timer()
         self.stage_timers: Dict[str, Timer] = {s: Timer() for s in STAGES}
-        # The batched program's stages, one tic/toc a sub-batch (its pairs'
+        # The batched program's stages, one call a sub-batch (its pairs'
         # reruns count in stage_timers, through register()).
         self.batch_stage_timers: Dict[str, Timer] = {s: Timer() for s in STAGES}
         self.last_batch: Dict[str, list] = {}
@@ -156,6 +159,7 @@ class DeepGlobalRegistration:
         self.compute_dtype = torch.bfloat16 if config.bf16 else torch.float32
         # One RANSAC seed a call, drawn in call order (_next_seed).
         self._seeds = device_utils.generator(0)
+        self._pair_ids = itertools.count()  # the register span's pair id
         self._streams: list = []  # register_many's worker streams, reused
 
         inlier_tree = None
@@ -213,13 +217,11 @@ class DeepGlobalRegistration:
         # A copy: the caller's array may be read-only.
         return torch.as_tensor(np.array(pcd, np.float32), device=self.device)
 
-    def _stage(self, name: str, start: bool, timers: Dict[str, Timer]):
-        if self.device.type == "cuda":
-            # This thread's stream only: under register_many each pair runs
-            # on its own stream, and a device-wide wait would serialise them.
-            torch.cuda.current_stream(self.device).synchronize()
-        t = timers[name]
-        t.tic() if start else t.toc()
+    def _stage(self, name: str, timers: Dict[str, Timer], *more: Timer):
+        """The span of stage ``name``, timed into ``timers[name]`` and
+        ``more``: on the card by events on this thread's stream (under
+        register_many each pair runs on its own stream)."""
+        return spans.span(name, timers[name], *more, cuda=self.device.type == "cuda")
 
     def _next_seed(self) -> int:
         """The next call's RANSAC seed (the JAX package splits its key once a
@@ -247,11 +249,12 @@ class DeepGlobalRegistration:
         # The JAX package keys a 6D plan's box on c0 only in
         # build_paired_unet_plan, which serves every ResUNet family but SP.
         paired = isinstance(cfg, ResUNetConfig) and not cfg.with_pooling
-        plan = build_unet_plan(c6, batch_size, cfg.conv1_kernel_size, cfg.region_type,
-                               cfg.levels, capacity=cap,
-                               level_shrink=self.level_shrink_6d,
-                               dense_extent=self.dense_extent if paired else None,
-                               with_pooling=cfg.with_pooling)
+        with spans.span("plan6"):
+            plan = build_unet_plan(c6, batch_size, cfg.conv1_kernel_size,
+                                   cfg.region_type, cfg.levels, capacity=cap,
+                                   level_shrink=self.level_shrink_6d,
+                                   dense_extent=self.dense_extent if paired else None,
+                                   with_pooling=cfg.with_pooling)
         return self.inlier(plan, ifeat.to(self.compute_dtype)).float(), plan.overflow
 
     def features(self, xyz0: torch.Tensor, xyz1: torch.Tensor):
@@ -260,23 +263,20 @@ class DeepGlobalRegistration:
         Returns (selected points 0, 1, voxel grids 0, 1, features 0, 1, the
         JAX package's overflow count for the 3D plan). Sets ``_cap``, the
         voxel bucket of the pair."""
-        *out, self._cap = self._features(xyz0, xyz1, self.stage_timers)
-        self.feat_timer.add(self.stage_timers["fcgf"].diff)
+        *out, self._cap = self._features(xyz0, xyz1, self.stage_timers, self.feat_timer)
         return tuple(out)
 
     def _features(self, xyz0: torch.Tensor, xyz1: torch.Tensor,
-                  timers: Dict[str, Timer]):
+                  timers: Dict[str, Timer], *fcgf_timers: Timer):
         """``features`` with the pair's voxel bucket appended, timed into
-        ``timers``."""
-        self._stage("voxelize", True, timers)
-        sel0, g0 = sparse_grid.voxelize(xyz0, self.voxel_size, 0)
-        sel1, g1 = sparse_grid.voxelize(xyz1, self.voxel_size, 1)
-        self._stage("voxelize", False, timers)
+        ``timers`` (the fcgf stage also into ``fcgf_timers``)."""
+        with self._stage("voxelize", timers):
+            sel0, g0 = sparse_grid.voxelize(xyz0, self.voxel_size, 0)
+            sel1, g1 = sparse_grid.voxelize(xyz1, self.voxel_size, 1)
         n0 = g0.shape[0]
         cap = _bucket_for(max(n0, g1.shape[0]), self.buckets)
-        self._stage("fcgf", True, timers)
-        feats, overflow = self._fcgf_forward(torch.cat([g0, g1]), 2, cap)
-        self._stage("fcgf", False, timers)
+        with self._stage("fcgf", timers, *fcgf_timers):
+            feats, overflow = self._fcgf_forward(torch.cat([g0, g1]), 2, cap)
         return sel0, sel1, g0, g1, feats[:n0], feats[n0:], overflow, cap
 
     def _inlier_inputs(self, sel0, sel1, g0, g1, f0, f1, idx1, column: int = 0):
@@ -322,18 +322,17 @@ class DeepGlobalRegistration:
         scan, or at voxel bucket ``cap`` candidate lists with the checked
         full-scan fallback. Returns (T, iterations, mode, whether the
         candidate answer was kept)."""
-        self._stage("icp", True, timers)
         mcd = 2 * self.voxel_size
-        if self.use_cand_for(cap):
-            res = icp_ops.registration_icp_checked(sel0, sel1, mcd, init=T)
-            mode = "candidates"
-            if not res.cand_ok:
-                log.warning("ICP candidate lists went stale (pose drift > "
-                            "quarter cell); the full-scan ICP fallback ran")
-        else:
-            res = icp_ops.registration_icp(sel0, sel1, mcd, init=T)
-            mode = "full"
-        self._stage("icp", False, timers)
+        with self._stage("icp", timers):
+            if self.use_cand_for(cap):
+                res = icp_ops.registration_icp_checked(sel0, sel1, mcd, init=T)
+                mode = "candidates"
+                if not res.cand_ok:
+                    log.warning("ICP candidate lists went stale (pose drift > "
+                                "quarter cell); the full-scan ICP fallback ran")
+            else:
+                res = icp_ops.registration_icp(sel0, sel1, mcd, init=T)
+                mode = "full"
         return res.T, res.iterations, mode, res.cand_ok
 
     def register(self, xyz0, xyz1, inlier_thr: float = 0.0) -> np.ndarray:
@@ -344,7 +343,8 @@ class DeepGlobalRegistration:
         ``PairRecord``), ``last_branch``, ``last_iterations`` and ``_cap``
         from it and adds its overflow, fallback and stage times to the
         instance's counters."""
-        T, rec = self._register_one(xyz0, xyz1, self._next_seed())
+        with spans.span("register", pair=next(self._pair_ids)):
+            T, rec = self._register_one(xyz0, xyz1, self._next_seed())
         self._record(rec)
         return T
 
@@ -365,18 +365,16 @@ class DeepGlobalRegistration:
         timers = {s: Timer() for s in STAGES}
         xyz0, xyz1 = self._as_tensor(xyz0), self._as_tensor(xyz1)
         sel0, sel1, g0, g1, f0, f1, ov3, cap = self._features(xyz0, xyz1, timers)
-        self._stage("match", True, timers)
-        if self.knn_search_method == "cpu":
-            idx = knn.find_knn_cpu(f0.cpu().numpy(), f1.cpu().numpy())
-            idx1 = torch.as_tensor(np.asarray(idx).reshape(-1), dtype=torch.long,
-                                   device=self.device)
-        else:
-            idx1 = knn.find_nn(f0, f1)[0].long()
-        self._stage("match", False, timers)
-        self._stage("inlier", True, timers)
-        w, ov6 = self.inlier_weights(sel0, sel1, g0, g1, f0, f1, idx1, cap)
-        wsum = float(torch.sum(w))
-        self._stage("inlier", False, timers)
+        with self._stage("match", timers):
+            if self.knn_search_method == "cpu":
+                idx = knn.find_knn_cpu(f0.cpu().numpy(), f1.cpu().numpy())
+                idx1 = torch.as_tensor(np.asarray(idx).reshape(-1), dtype=torch.long,
+                                       device=self.device)
+            else:
+                idx1 = knn.find_nn(f0, f1)[0].long()
+        with self._stage("inlier", timers):
+            w, ov6 = self.inlier_weights(sel0, sel1, g0, g1, f0, f1, idx1, cap)
+            wsum = float(torch.sum(w))
         if ov3 or ov6:
             log.warning("the JAX package's fixed kernel-map capacities would "
                         "drop entries on this pair (3D: %d, 6D: %d)", ov3, ov6)
@@ -384,34 +382,35 @@ class DeepGlobalRegistration:
         thresh = max(200.0, 0.05 * n0)
         log.info("Weighted sum %.2f %s threshold %.1f", wsum,
                  ">=" if wsum >= thresh else "<", thresh)
-        self._stage("solve", True, timers)
         voxel2 = 2 * self.voxel_size
-        if wsum >= thresh:
-            res = registration.global_registration(
-                sel0, sel1[idx1], w, break_threshold_ratio=1e-4,
-                quantization_size=voxel2)
-        elif self.safeguard_method == "correspondence":
-            res = ransac.ransac_correspondence(
-                sel0, sel1[idx1], distance_threshold=voxel2,
-                num_hypotheses=self.ransac_hypotheses,
-                generator=device_utils.generator(seed, self.device))
-        else:
-            res = ransac.ransac_feature_matching(
-                sel0, sel1, f0, f1, distance_threshold=voxel2,
-                num_hypotheses=self.ransac_hypotheses,
-                generator=device_utils.generator(seed, self.device))
-        T = se3.rt_to_matrix(res.R, res.t)
-        iterations = {"refine": getattr(res, "iterations", 0)}
-        self._stage("solve", False, timers)
+        with self._stage("solve", timers):
+            if wsum >= thresh:
+                with spans.span("refine"):
+                    res = registration.global_registration(
+                        sel0, sel1[idx1], w, break_threshold_ratio=1e-4,
+                        quantization_size=voxel2)
+            elif self.safeguard_method == "correspondence":
+                res = ransac.ransac_correspondence(
+                    sel0, sel1[idx1], distance_threshold=voxel2,
+                    num_hypotheses=self.ransac_hypotheses,
+                    generator=device_utils.generator(seed, self.device))
+            else:
+                res = ransac.ransac_feature_matching(
+                    sel0, sel1, f0, f1, distance_threshold=voxel2,
+                    num_hypotheses=self.ransac_hypotheses,
+                    generator=device_utils.generator(seed, self.device))
+            T = se3.rt_to_matrix(res.R, res.t)
+            iterations = {"refine": getattr(res, "iterations", 0)}
         cand_ok = True
         if self.use_icp:
             T, icp_iters, mode, cand_ok = self.icp_polish(sel0, sel1, T, cap, timers)
             iterations.update(icp=icp_iters, icp_mode=mode)
+        T = T.double().cpu().numpy()  # waits for the stream: the timers' events are done
         rec = PairRecord(branch="refine" if wsum >= thresh else "ransac",
                          iterations=iterations, cap=cap, overflow=bool(ov3 or ov6),
                          cand_fallback=not cand_ok,
                          stage_s={s: t.total_time for s, t in timers.items()})
-        return T.double().cpu().numpy(), rec
+        return T, rec
 
     # Pairs in flight in register_many: the JAX package's value, kept as its
     # contract. On the H100 the window runs slower than the loop, since each
@@ -445,7 +444,8 @@ class DeepGlobalRegistration:
         out, records = [None] * len(pairs), [None] * len(pairs)
         if self.knn_search_method == "cpu" or self.safeguard_method != "correspondence":
             for k, (a, b) in enumerate(pairs):
-                out[k], records[k] = self._register_one(a, b, self._next_seed())
+                with spans.span("register", pair=next(self._pair_ids)):
+                    out[k], records[k] = self._register_one(a, b, self._next_seed())
                 self._record(records[k])
             self.last_many = records
             return np.stack(out)
@@ -460,12 +460,14 @@ class DeepGlobalRegistration:
             for s in streams:  # work the caller queued comes first
                 s.wait_stream(caller)
 
-            def run(a, b, seed, slot):
-                with torch.cuda.device(dev), torch.cuda.stream(streams[slot]):
+            def run(a, b, seed, slot, pair):
+                with torch.cuda.device(dev), torch.cuda.stream(streams[slot]), \
+                        spans.span("register", pair=pair):
                     return self._register_one(a, b, seed)
         else:
-            def run(a, b, seed, slot):
-                return self._register_one(a, b, seed)
+            def run(a, b, seed, slot, pair):
+                with spans.span("register", pair=pair):
+                    return self._register_one(a, b, seed)
 
         inflight = collections.deque()
         error = None
@@ -488,7 +490,7 @@ class DeepGlobalRegistration:
                 if error is not None:
                     break
                 inflight.append((k, pool.submit(run, a, b, self._next_seed(),
-                                                k % window)))
+                                                k % window, next(self._pair_ids))))
             while inflight:
                 collect()
         if error is not None:
@@ -546,8 +548,9 @@ class DeepGlobalRegistration:
         m = self._MAX_SUB_BATCH
         for s in range(0, len(mine), m):
             sub = mine[s:s + m]
-            out[s:s + m] = self._register_sub_batch([clouds0[i] for i in sub],
-                                                    [clouds1[i] for i in sub])
+            with spans.span("register_batch", sub_batch=s // m):
+                out[s:s + m] = self._register_sub_batch([clouds0[i] for i in sub],
+                                                        [clouds1[i] for i in sub])
         if mesh is not None and mesh.size > 1:
             ranks = dp.gather_objects(mesh, (out, self.last_batch))
             out = np.concatenate([r[0] for r in ranks])[:b]
@@ -577,42 +580,38 @@ class DeepGlobalRegistration:
         xyz0 = [self._as_tensor(x) for x in clouds0]
         xyz1 = [self._as_tensor(x) for x in clouds1]
 
-        self._stage("voxelize", True, timers)
-        sel0, sel1, g0, g1 = [], [], [], []
-        for p in range(b):  # batch column 2p: cloud 0 of pair p, 2p + 1: cloud 1
-            for xyz, sel, g, col in ((xyz0[p], sel0, g0, 2 * p),
-                                     (xyz1[p], sel1, g1, 2 * p + 1)):
-                s, grid = sparse_grid.voxelize(xyz, self.voxel_size, col)
-                sel.append(s)
-                g.append(grid)
-        self._stage("voxelize", False, timers)
+        with self._stage("voxelize", timers):
+            sel0, sel1, g0, g1 = [], [], [], []
+            for p in range(b):  # batch column 2p: cloud 0 of pair p, 2p + 1: cloud 1
+                for xyz, sel, g, col in ((xyz0[p], sel0, g0, 2 * p),
+                                         (xyz1[p], sel1, g1, 2 * p + 1)):
+                    s, grid = sparse_grid.voxelize(xyz, self.voxel_size, col)
+                    sel.append(s)
+                    g.append(grid)
         n0 = [g.shape[0] for g in g0]
         n1 = [g.shape[0] for g in g1]
         cap = _bucket_for(max(n0 + n1), self.buckets)  # the ICP rule keys on it
 
-        self._stage("fcgf", True, timers)
-        clouds = [g for pair in zip(g0, g1) for g in pair]
-        feats, _ = self._fcgf_forward(torch.cat(clouds), 2 * b, cap)
-        feats = feats.split([g.shape[0] for g in clouds])
-        f0, f1 = feats[0::2], feats[1::2]
-        self._stage("fcgf", False, timers)
+        with self._stage("fcgf", timers):
+            clouds = [g for pair in zip(g0, g1) for g in pair]
+            feats, _ = self._fcgf_forward(torch.cat(clouds), 2 * b, cap)
+            feats = feats.split([g.shape[0] for g in clouds])
+            f0, f1 = feats[0::2], feats[1::2]
 
-        self._stage("match", True, timers)
-        idx = knn.find_nn_batched(pad_sequence(f0, batch_first=True),
-                                  pad_sequence(f1, batch_first=True), n0, n1)[0]
-        idx1 = [idx[p, :n0[p]].long() for p in range(b)]
-        self._stage("match", False, timers)
+        with self._stage("match", timers):
+            idx = knn.find_nn_batched(pad_sequence(f0, batch_first=True),
+                                      pad_sequence(f1, batch_first=True), n0, n1)[0]
+            idx1 = [idx[p, :n0[p]].long() for p in range(b)]
 
-        self._stage("inlier", True, timers)
-        rows = [self._inlier_inputs(sel0[p], sel1[p], g0[p], g1[p], f0[p], f1[p],
-                                    idx1[p], column=p) for p in range(b)]
-        logits, _ = self._inlier_logits(torch.cat([r[0] for r in rows]),
-                                        torch.cat([r[1] for r in rows]), cap,
-                                        batch_size=b)
-        w = self._weights(logits).split(n0)
-        wsum = torch.stack([torch.sum(wp) for wp in w]).tolist()
-        gate = [wsum[p] >= max(200.0, 0.05 * n0[p]) for p in range(b)]
-        self._stage("inlier", False, timers)
+        with self._stage("inlier", timers):
+            rows = [self._inlier_inputs(sel0[p], sel1[p], g0[p], g1[p], f0[p], f1[p],
+                                        idx1[p], column=p) for p in range(b)]
+            logits, _ = self._inlier_logits(torch.cat([r[0] for r in rows]),
+                                            torch.cat([r[1] for r in rows]), cap,
+                                            batch_size=b)
+            w = self._weights(logits).split(n0)
+            wsum = torch.stack([torch.sum(wp) for wp in w]).tolist()
+            gate = [wsum[p] >= max(200.0, 0.05 * n0[p]) for p in range(b)]
 
         # The JAX package refines every pair and then discards the answer of
         # a gate-failing one; here such pairs are left out of the refinement
@@ -623,28 +622,27 @@ class DeepGlobalRegistration:
         cand_ok = [True] * b
         mode = "candidates" if self.use_cand_for(cap) else "full"
         if ok:
-            self._stage("solve", True, timers)
-            res = registration.global_registration(
-                pad_sequence([sel0[p] for p in ok], batch_first=True),
-                pad_sequence([sel1[p][idx1[p]] for p in ok], batch_first=True),
-                pad_sequence([w[p] for p in ok], batch_first=True),
-                break_threshold_ratio=1e-4, quantization_size=2 * self.voxel_size)
-            T = se3.rt_to_matrix(res.R, res.t)
-            for k, p in enumerate(ok):
-                refine[p] = res.iterations[k]
-            self._stage("solve", False, timers)
-            if self.use_icp:
-                self._stage("icp", True, timers)
-                # No checked wrapper: pairs whose lists go stale are rerun.
-                ires = icp_ops.registration_icp(
-                    pad_sequence([sel0[p] for p in ok], batch_first=True),
-                    pad_sequence([sel1[p] for p in ok], batch_first=True),
-                    2 * self.voxel_size, init=T, use_candidates=mode == "candidates",
-                    num0=[n0[p] for p in ok], num1=[n1[p] for p in ok])
-                T = ires.T
+            with self._stage("solve", timers):
+                with spans.span("refine"):
+                    res = registration.global_registration(
+                        pad_sequence([sel0[p] for p in ok], batch_first=True),
+                        pad_sequence([sel1[p][idx1[p]] for p in ok], batch_first=True),
+                        pad_sequence([w[p] for p in ok], batch_first=True),
+                        break_threshold_ratio=1e-4, quantization_size=2 * self.voxel_size)
+                T = se3.rt_to_matrix(res.R, res.t)
                 for k, p in enumerate(ok):
-                    icp_iters[p], cand_ok[p] = ires.iterations[k], ires.cand_ok[k]
-                self._stage("icp", False, timers)
+                    refine[p] = res.iterations[k]
+            if self.use_icp:
+                with self._stage("icp", timers):
+                    # No checked wrapper: pairs whose lists go stale are rerun.
+                    ires = icp_ops.registration_icp(
+                        pad_sequence([sel0[p] for p in ok], batch_first=True),
+                        pad_sequence([sel1[p] for p in ok], batch_first=True),
+                        2 * self.voxel_size, init=T, use_candidates=mode == "candidates",
+                        num0=[n0[p] for p in ok], num1=[n1[p] for p in ok])
+                    T = ires.T
+                    for k, p in enumerate(ok):
+                        icp_iters[p], cand_ok[p] = ires.iterations[k], ires.cand_ok[k]
         out = np.zeros((b, 4, 4))
         out[ok] = T.double().cpu().numpy()
         rerun = [not (gate[p] and cand_ok[p]) for p in range(b)]

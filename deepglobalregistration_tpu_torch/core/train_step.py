@@ -29,6 +29,7 @@ the ranks before the finiteness check and the update.
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -39,12 +40,14 @@ from ..data.collate import PairBatch
 from ..models.unet_plan import build_unet_plan
 from ..ops import knn, losses, metrics, procrustes
 from ..parallel import data_parallel as dp
+from ..utils import spans
 from .correspondence import find_correct_correspondence
 
 
 def batch_to(batch: PairBatch, device) -> PairBatch:
     """A collated (numpy) ``PairBatch`` as tensors on ``device``."""
-    return PairBatch(*(torch.as_tensor(np.array(x), device=device) for x in batch))
+    with spans.span("train.batch_to"):
+        return PairBatch(*(torch.as_tensor(np.array(x), device=device) for x in batch))
 
 
 def make_optimizer(name: str, params, config) -> torch.optim.Optimizer:
@@ -196,9 +199,14 @@ def make_train_step(fcgf, inlier, config, optimizer: torch.optim.Optimizer,
 
     ``config.remat`` runs the inlier net under ``torch.utils.checkpoint``
     (its activations recomputed in backward; the recompute's BN statistic
-    update is undone). ``timers`` (name -> ``utils.timer.Timer``) times the
-    stages fcgf, match, plan6, inlier, loss, backward and optimizer, with a
-    device synchronisation at each edge.
+    update is undone). Each call of ``step`` is the span ``train.step`` (with
+    its step number) and each stage a span under it (``utils/spans.py``):
+    ``train.fcgf``, ``train.match``, ``train.plan6``, ``train.inlier``,
+    ``train.loss``, ``train.backward``, ``train.optimizer``. ``timers`` (name
+    -> ``utils.timer.Timer``, without the prefix) times each stage: on the
+    card a pair of CUDA events on the current stream, read when the timer is
+    read (the stage's interval on the card's timeline), so timing stops
+    nothing; on the CPU the host clock.
 
     ``mesh`` (a rank's ``data_parallel.Mesh``): ``batch`` (and ``nn_idx``)
     are this rank's shard, ``loss`` this rank's share of the whole batch's
@@ -216,18 +224,14 @@ def make_train_step(fcgf, inlier, config, optimizer: torch.optim.Optimizer,
 
     clip = config.clip_weight_thresh
     params = [p for p in inlier.parameters() if p.requires_grad]
+    cuda = params[0].is_cuda
 
-    @contextlib.contextmanager
     def stage(name):
         if timers is None:
-            yield
-            return
-        sync = (lambda: torch.cuda.synchronize()) if params[0].is_cuda else (lambda: None)
-        sync()
-        timers[name].tic()
-        yield
-        sync()
-        timers[name].toc()
+            return spans.span("train." + name)
+        return spans.span("train." + name, timers[name], cuda=cuda)
+
+    steps = itertools.count()
 
     def loss_fn(batch: PairBatch, nn_idx: torch.Tensor | None = None):
         inp = generate_inlier_input(fcgf, batch, config.inlier_feature_type,
@@ -282,22 +286,23 @@ def make_train_step(fcgf, inlier, config, optimizer: torch.optim.Optimizer,
         """One update; a non-finite gradient skips ``optimizer.step()``, so
         the parameters and the optimizer's state stay as they were
         (trainer.py:286-293)."""
-        optimizer.zero_grad(set_to_none=True)
-        loss, stats = loss_fn(batch, nn_idx)
-        with stage("backward"):
-            if config.remat:
-                with kept_bn_state(inlier):
+        with spans.span("train.step", step=next(steps)):
+            optimizer.zero_grad(set_to_none=True)
+            loss, stats = loss_fn(batch, nn_idx)
+            with stage("backward"):
+                if config.remat:
+                    with kept_bn_state(inlier):
+                        loss.backward()
+                else:
                     loss.backward()
-            else:
-                loss.backward()
-        with stage("optimizer"):
-            if group is not None:
-                dp.all_reduce_grads(mesh, params)
-            finite = grads_finite(params)
-            if finite:
-                optimizer.step()
-        stats = {k: v.detach() for k, v in stats.items()}
-        stats["grad_finite"] = finite
-        return stats
+            with stage("optimizer"):
+                if group is not None:
+                    dp.all_reduce_grads(mesh, params)
+                finite = grads_finite(params)
+                if finite:
+                    optimizer.step()
+            stats = {k: v.detach() for k, v in stats.items()}
+            stats["grad_finite"] = finite
+            return stats
 
     return step, loss_fn

@@ -4,9 +4,9 @@ Counterpart of the JAX package's ``utils/profiling.py`` (SURVEY.md section
 5): ``trace()`` wraps a code region in ``torch.profiler`` (CPU and CUDA
 activities, Python stacks) and writes a Chrome trace into ``log_dir``;
 ``summarize_trace`` parses the newest trace there into device ms per CUDA
-kernel name; ``attribute_trace`` puts each kernel's time on the Python line
-or the PyTorch operator that launched it, so results read without
-TensorBoard.
+kernel name; ``attribute_trace`` puts each kernel's time on the Python line,
+the PyTorch operator or the port's span (``utils/spans.py``) that launched
+it, so results read without TensorBoard.
 
 The JAX ``attribute_trace`` joins device ops to the compiled HLO's source
 metadata, through a ``compiled_text`` argument. An eager PyTorch program has
@@ -31,6 +31,8 @@ import time
 from typing import Dict, List, Tuple
 
 import torch
+
+from . import spans
 
 PACKAGE = "deepglobalregistration_tpu_torch/"
 _FRAME = re.compile(r"^(.*)\((\d+)\): (.*)$")
@@ -132,15 +134,38 @@ def _innermost(frames: List[Tuple[float, float, str]],
     return out
 
 
+def _span_labels(events: List[dict], launches: Dict[tuple, list]) -> Dict[int, str]:
+    """For each (t, id) of ``launches`` (by thread), the name of the
+    innermost ``dgr.*`` span (ids dropped) the thread was in at t. A thread
+    in no span then (autograd runs CUDA backward on a thread of its own)
+    takes the innermost span any thread was in: the one that started last."""
+    by_thread: Dict[tuple, list] = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X" \
+                and e["name"].startswith(spans.PREFIX):
+            by_thread[(e["pid"], e["tid"])].append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                 spans.split_label(e["name"])[0]))
+    out: Dict[int, str] = {}
+    for thread, ts in launches.items():
+        out.update(_innermost(by_thread.get(thread, []), ts))
+    rest = [tq for ts in launches.values() for tq in ts if tq[1] not in out]
+    out.update(_innermost([f for fs in by_thread.values() for f in fs], rest))
+    return out
+
+
 def attribute_trace(log_dir: str, top: int = 30, by: str = "line") -> Dict[str, float]:
     """Device ms of the newest trace's CUDA kernels, grouped by what launched
     them: ``by="line"`` on the innermost ``file:line`` of this package in the
     launching Python stack (the trace must have been taken with stacks),
-    ``by="op"`` on the launching PyTorch operator's name. A kernel with no
-    such frame or operator (a kernel launched through ctypes has no
-    operator) groups under its own name."""
-    if by not in ("line", "op"):
-        raise ValueError(f"by must be 'line' or 'op', got {by!r}")
+    ``by="op"`` on the launching PyTorch operator's name, ``by="span"`` on
+    the innermost of the port's spans (``dgr.train.plan6``, ``dgr.fcgf``,
+    ...: ``utils/spans.py``) around the launch, a launch from a thread in no
+    span (autograd's backward thread) taking the span another thread was in.
+    A kernel with no such frame, operator or span (a kernel launched through
+    ctypes has no operator) groups under its own name."""
+    if by not in ("line", "op", "span"):
+        raise ValueError(f"by must be 'line', 'op' or 'span', got {by!r}")
     events = load_trace(log_dir) or []
     launches = {e["args"]["correlation"]: e for e in events
                 if e.get("cat") in _LAUNCH_CATS and "correlation" in e.get("args", {})}
@@ -156,6 +181,14 @@ def attribute_trace(log_dir: str, top: int = 30, by: str = "line") -> Dict[str, 
             if ext in ops:
                 labels[q] = ops[ext]
     else:
+        times: Dict[tuple, list] = collections.defaultdict(list)
+        for q, k in enumerate(kernels):
+            launch = launches.get(k.get("args", {}).get("correlation"))
+            if launch is not None:
+                times[(launch["pid"], launch["tid"])].append((float(launch["ts"]), q))
+    if by == "span":
+        labels = _span_labels(events, times)
+    elif by == "line":
         frames: Dict[tuple, list] = collections.defaultdict(list)
         for e in events:
             if e.get("cat") == "python_function" and e.get("ph") == "X":
@@ -163,11 +196,6 @@ def attribute_trace(log_dir: str, top: int = 30, by: str = "line") -> Dict[str, 
                 if key is not None:
                     frames[(e["pid"], e["tid"])].append(
                         (float(e["ts"]), float(e["ts"]) + float(e["dur"]), key))
-        times: Dict[tuple, list] = collections.defaultdict(list)
-        for q, k in enumerate(kernels):
-            launch = launches.get(k.get("args", {}).get("correlation"))
-            if launch is not None:
-                times[(launch["pid"], launch["tid"])].append((float(launch["ts"]), q))
         for thread, ts in times.items():
             labels.update(_innermost(frames.get(thread, []), ts))
     agg: collections.Counter = collections.Counter()

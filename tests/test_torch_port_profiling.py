@@ -5,7 +5,8 @@
 no device ops. The parsers are held to exact sums on a small hand-written
 trace in torch.profiler's Chrome format: kernel events joined through
 ``correlation`` to their host launches and through ``External id`` to the
-launching operator, with a nested Python stack on two host threads.
+launching operator, with a nested Python stack on two host threads, and
+the port's ``dgr.*`` spans on one of them.
 """
 
 import gzip
@@ -34,6 +35,11 @@ def _op(name, ts, dur, ext):
             "ts": ts, "dur": dur, "args": {"External id": ext}}
 
 
+def _span(name, ts, dur):
+    return {"ph": "X", "cat": "user_annotation", "name": name, "pid": PID, "tid": 1,
+            "ts": ts, "dur": dur, "args": {}}
+
+
 def _launch(ts, corr, ext=0, tid=1):
     return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "pid": PID,
             "tid": tid, "ts": ts, "dur": 5, "args": {"External id": ext,
@@ -58,6 +64,9 @@ def _events():
         _frame(f"{pkg}/ops/sparse_conv.py(80): _gather", 650, 50),
         _frame(f"{pkg}/ops/gather.py(40): take", 0, 400, tid=2),
         _op("aten::mm", 320, 100, 8),
+        _span("dgr.register[pair=0]", 0, 1000),
+        _span("dgr.match", 100, 150),
+        _span("dgr.fcgf", 600, 200),
         _op("aten::index_add_", 660, 30, 7),
         _launch(150, 1),              # through ctypes: no operator
         _launch(330, 2, 8),           # aten::mm inside torch's frame
@@ -116,6 +125,14 @@ def test_attribute_trace_by_line(hand_trace):
     assert list(profiling.attribute_trace(hand_trace, top=1)) == [f"{pkg}/ops/knn.py:123"]
     with pytest.raises(ValueError):
         profiling.attribute_trace(hand_trace, by="hlo")
+
+
+def test_attribute_trace_by_span(hand_trace):
+    """Each kernel on the innermost span around its launch, ids dropped; the
+    launch on thread 2, which holds no span, takes thread 1's span then."""
+    got = profiling.attribute_trace(hand_trace, by="span")
+    assert got == pytest.approx({"dgr.match": 0.260, "dgr.register": 0.040,
+                                 "dgr.fcgf": 0.030, MMA[:80]: 0.050}, abs=1e-12)
 
 
 def test_trace_on_the_cpu_has_no_kernel_events(tmp_path):

@@ -45,9 +45,20 @@ from .correspondence import find_correct_correspondence
 
 
 def batch_to(batch: PairBatch, device) -> PairBatch:
-    """A collated (numpy) ``PairBatch`` as tensors on ``device``."""
+    """A collated (numpy) ``PairBatch`` as tensors on ``device``, sharing no
+    memory with the batch. An upload to the card reads a writable array in
+    place, with no host copy first: the padded positives of a LiDAR batch
+    run to ~10^8 bytes a step."""
+    dev = torch.device(device)
+
+    def put(x):
+        a = np.asarray(x)
+        if dev.type == "cuda" and a.flags.writeable:
+            return torch.from_numpy(a).to(dev)
+        return torch.as_tensor(np.array(a), device=dev)
+
     with spans.span("train.batch_to"):
-        return PairBatch(*(torch.as_tensor(np.array(x), device=device) for x in batch))
+        return PairBatch(*(put(x) for x in batch))
 
 
 def make_optimizer(name: str, params, config) -> torch.optim.Optimizer:

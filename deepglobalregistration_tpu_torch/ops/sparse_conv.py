@@ -30,18 +30,43 @@ order (``slot_sum_runs``: an offset's tiles are one run). Sum pooling
 the instance norm's per-cloud sums are one-hot matmuls. No
 accumulation here is atomic: the backward of ``x[idx]`` or of
 ``index_select`` would be an ``index_add_``, so none is left to autograd.
+
+``tile_counts`` counts, by pass (``forward``, ``dx``, ``dk``), the tile rows
+each call launched and the edges among them: every offset with an edge
+takes whole tiles, and a padding row costs a row's products like an edge.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import cuda_build
 from .edge_conv import EdgeMap
 from .slot_sum import slot_sum, slot_sum_rows, slot_sum_runs
 
 # Tiles per batched matmul: bounds the gathered [chunk, T, Cin] rows and the
 # [chunk, Cin, Cout] kernel slices.
 _MAX_CHUNK_ELEMS = 1 << 26
+
+
+class TileCount:
+    """What one pass of the conv launched since the last ``reset``: tile
+    rows (``tile_rows``, ``tile_k.shape[0] * tile`` a call) and the edges
+    among them (``edges``); the rest are padding. Both are host integers,
+    so counting waits for nothing."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.tile_rows = self.edges = 0
+
+    def add(self, em: EdgeMap) -> None:
+        cuda_build.count_launch(self, em.tile_k.shape[0] * em.tile, "tile_rows")
+        cuda_build.count_launch(self, em.n_edges, "edges")
+
+
+tile_counts = {"forward": TileCount(), "dx": TileCount(), "dk": TileCount()}
 
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor, em: EdgeMap, src: torch.Tensor,
@@ -77,6 +102,7 @@ class _SparseConv(torch.autograd.Function):
     def forward(ctx, x, kernel, em):
         ctx.em = em
         ctx.save_for_backward(x, kernel)
+        tile_counts["forward"].add(em)
         return _conv(x, kernel, em, em.tile_in, em.out_ptr, em.out_slots, em.n_out)
 
     @staticmethod
@@ -86,9 +112,11 @@ class _SparseConv(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dk = None
         if ctx.needs_input_grad[0]:
+            tile_counts["dx"].add(em)
             dx = _conv(dy, kernel.transpose(1, 2), em, em.tile_out, em.in_ptr,
                        em.in_slots, em.n_in)
         if ctx.needs_input_grad[1]:
+            tile_counts["dk"].add(em)
             k, cin, cout = kernel.shape
             t, n_tiles = em.tile, em.tile_k.shape[0]
             xp = torch.cat([x, x.new_zeros((1, cin))])

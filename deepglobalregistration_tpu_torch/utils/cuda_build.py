@@ -90,8 +90,9 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def count_launch(wrapper, n: int = 1) -> None:
-    """Add ``n`` to ``wrapper.launches``. ``+=`` on an attribute reads, adds
-    and writes, so two threads adding at once could lose a launch."""
+def count_launch(wrapper, n: int = 1, counter: str = "launches") -> None:
+    """Add ``n`` to ``wrapper.launches`` (or to its attribute ``counter``).
+    ``+=`` on an attribute reads, adds and writes, so two threads adding at
+    once could lose a launch."""
     with _count_lock:
-        wrapper.launches += n
+        setattr(wrapper, counter, getattr(wrapper, counter) + n)

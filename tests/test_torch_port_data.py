@@ -149,6 +149,17 @@ def test_native_radius_pairs(rng):
     assert len(native.radius_pairs(src, tgt, T, 0.08, max_pairs=10)) == 10
 
 
+def test_native_radius_pairs_keeps_every_pair():
+    """Without ``max_pairs``, every pair, past the library's first buffer
+    (here 2^20 pairs, of 2000 x 2100 within reach)."""
+    src = np.random.RandomState(3).rand(2000, 3).astype(np.float32)
+    tgt = np.random.RandomState(4).rand(2100, 3).astype(np.float32)
+    got = native.radius_pairs(src, tgt, np.eye(4, dtype=np.float32), 2.0)
+    assert got.shape == (2000 * 2100, 2)
+    assert len(np.unique(got[:, 0].astype(np.int64) * 2100 + got[:, 1])) == len(got)
+    assert len(native.radius_pairs(src, tgt, np.eye(4), 2.0, max_pairs=1 << 20)) == 1 << 20
+
+
 def test_native_rejects_bad_shapes():
     with pytest.raises(ValueError):
         native.voxelize(np.zeros((4, 2), np.float32), 0.1)
